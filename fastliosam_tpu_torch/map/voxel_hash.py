@@ -1,0 +1,373 @@
+"""Device-resident voxel-surfel hash map (port of
+``fastliosam_tpu/map/voxel_hash.py``).
+
+An open-addressing hash table of voxels; each voxel accumulates Gaussian
+surfel statistics ``[count, Σ(p-c) (3), Σ outer (6)]`` relative to its
+centre in one fused ``(C, 10)`` moment tensor. Identity checks use one
+int32 fingerprint word per slot (odd, so 0 means empty).
+
+The hash and the fingerprint are uint32 arithmetic in the JAX package:
+coordinates wrap into uint32, products wrap modulo 2^32 and ``>>`` is a
+logical shift. Torch's uint32 support is thin and ``>>`` on int32 is
+arithmetic, so the port emulates them in int64 masked with 0xFFFFFFFF,
+splitting each multiplier into 16-bit halves so no product leaves int64.
+Both words match the JAX package bit for bit, which is what lets the
+parity tests compare slot tables.
+
+Every ``mode="drop"`` scatter of the JAX package becomes a write into a
+buffer with one extra row that takes the dropped indices. Functions return
+new tensors and leave the input map untouched, as the JAX functions do.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.eigh3 import smallest_eigvec3
+from ..utils.device import resolve_device
+
+_P1, _P2, _P3 = 73856093, 19349669, 83492791
+_Q1, _Q2, _Q3 = 2654435761, 805459861, 3674653429  # fingerprint hash
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(a, k: int):
+    """``(a * k) mod 2^32`` for int64 ``a`` in [0, 2^32) and a uint32
+    constant ``k``, without int64 overflow."""
+    lo, hi = k & 0xFFFF, k >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix32(h):
+    """Avalanche finalizer (murmur3 fmix variant) on uint32 values held in
+    int64."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    return h
+
+
+class VoxelMapConfig(NamedTuple):
+    capacity: int = 1 << 20  # hash slots (power of two, keep load < 0.25)
+    voxel_size: float = 0.5
+    insert_probes: int = 4
+    claim_probes: int = 4
+    query_probes: int = 4
+    min_points: int = 5
+    plane_var_thresh: float = 0.01
+    fit_noise_floor: float = 1e-4
+    max_points_per_voxel: float = 1000.0
+
+
+class VoxelMap(NamedTuple):
+    """SoA hash table. All tensors have leading dim = capacity."""
+
+    fp: torch.Tensor  # (C,) int32 fingerprint; 0 = empty, else odd
+    coords: torch.Tensor  # (C, 3) int32 voxel integer coords
+    moments: torch.Tensor  # (C, 10) float32 [count, psum(3), pouter(6)]
+    normal: torch.Tensor  # (C, 3) float32 cached plane normal
+    d: torch.Tensor  # (C,) float32 cached plane offset
+    plane_valid: torch.Tensor  # (C,) int32 0/1
+
+
+def make_map(cfg: VoxelMapConfig, device=None) -> VoxelMap:
+    c = cfg.capacity
+    if c & (c - 1):
+        raise ValueError("capacity must be a power of two")
+    dev = resolve_device(device)
+    z = dict(device=dev)
+    return VoxelMap(
+        fp=torch.zeros((c,), dtype=torch.int32, **z),
+        coords=torch.zeros((c, 3), dtype=torch.int32, **z),
+        moments=torch.zeros((c, 10), dtype=torch.float32, **z),
+        normal=torch.zeros((c, 3), dtype=torch.float32, **z),
+        d=torch.zeros((c,), dtype=torch.float32, **z),
+        plane_valid=torch.zeros((c,), dtype=torch.int32, **z),
+    )
+
+
+def _voxel_coords(xyz, voxel_size):
+    # multiply by the float32 reciprocal: XLA compiles the JAX package's
+    # ``xyz / voxel_size`` that way, and a point on a voxel boundary must
+    # land in the same voxel as in the (always compiled) JAX package
+    return torch.floor(xyz * (1.0 / voxel_size)).to(torch.int32)
+
+
+def _as_u32(coords):
+    return coords.to(torch.int64) & _MASK32
+
+
+def _hash(coords, capacity):
+    """Slot index (int32) of int32 voxel coords (..., 3)."""
+    c = _as_u32(coords)
+    h = (
+        _mul32(c[..., 0], _P1) + _mul32(c[..., 1], _P2) + _mul32(c[..., 2], _P3)
+    ) & _MASK32
+    return (_mix32(h) & (capacity - 1)).to(torch.int32)
+
+
+def _fingerprint(coords):
+    """Odd (hence nonzero) int32 identity word per voxel coordinate: the
+    uint32 hash bit-cast to int32."""
+    c = _as_u32(coords)
+    h = (
+        _mul32(c[..., 0], _Q1) + _mul32(c[..., 1], _Q2) + _mul32(c[..., 2], _Q3)
+    ) & _MASK32
+    h = _mix32(h) | 1
+    return torch.where(h >= (1 << 31), h - (1 << 32), h).to(torch.int32)
+
+
+def _voxel_center(coords, voxel_size):
+    return (coords.to(torch.float32) + 0.5) * voxel_size
+
+
+def _outer6(v):
+    """Upper-triangle outer product packing (..., 3) -> (..., 6)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([x * x, x * y, x * z, y * y, y * z, z * z], dim=-1)
+
+
+def _unpack_sym(m6):
+    """(..., 6) -> (..., 3, 3) symmetric."""
+    xx, xy, xz, yy, yz, zz = (m6[..., i] for i in range(6))
+    return torch.stack(
+        [
+            torch.stack([xx, xy, xz], dim=-1),
+            torch.stack([xy, yy, yz], dim=-1),
+            torch.stack([xz, yz, zz], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _with_drop_row(t):
+    """``t`` plus one zero row at index ``len(t)`` that takes the writes the
+    JAX package drops (``mode="drop"`` with an out-of-bounds index)."""
+    return torch.cat([t, torch.zeros_like(t[:1])])
+
+
+def _find_slots(m: VoxelMap, cfg: VoxelMapConfig, coords, mask, probes=None):
+    """Probe for existing slots: one fingerprint gather per round. Returns
+    ``(slots int64, found)``; slots is -1 where not found."""
+    cap = cfg.capacity
+    h0 = _hash(coords, cap).to(torch.int64)
+    want = _fingerprint(coords)
+    slots = torch.full(coords.shape[:-1], -1, dtype=torch.int64,
+                       device=coords.device)
+    for p in range(probes or cfg.query_probes):
+        cand = (h0 + p) & (cap - 1)
+        match = m.fp[cand] == want
+        slots = torch.where((slots < 0) & match & mask, cand, slots)
+    return slots, slots >= 0
+
+
+def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
+    """Insert a masked batch of world-frame points. Returns ``(map,
+    n_dropped)``.
+
+    Fused match-or-claim probing: each round gathers the fingerprints once,
+    adopts a slot whose fingerprint matches, or claims an empty one in a
+    scatter-max tournament on ``pid + 1`` (highest point index wins, as in
+    the JAX package); same-voxel losers adopt the winner's entry on the
+    re-check, true collisions advance to the next probe offset.
+    """
+    cap = cfg.capacity
+    dev = xyz.device
+    coords = _voxel_coords(xyz, cfg.voxel_size)
+    h0 = _hash(coords, cap).to(torch.int64)
+    want = _fingerprint(coords)
+    n = xyz.shape[0]
+    pid1 = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+
+    fp = m.fp.clone()
+    slots = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    poff = torch.zeros((n,), dtype=torch.int64, device=dev)
+    won_slot = torch.full((n,), cap, dtype=torch.int64, device=dev)
+    for _ in range(max(cfg.insert_probes, cfg.claim_probes)):
+        cand = (h0 + poff) & (cap - 1)
+        unassigned = (slots < 0) & mask
+        cur = fp[cand]
+        slots = torch.where(unassigned & (cur == want), cand, slots)
+        tryclaim = unassigned & (cur == 0)
+        claim = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
+        claim.scatter_reduce_(0, cand, torch.where(tryclaim, pid1, 0), "amax")
+        won = tryclaim & (claim[cand] == pid1)
+        # empty slots hold fp == 0, so adding writes exactly the winner's word
+        fp.index_add_(0, cand, want * won.to(torch.int32))
+        won_slot = torch.where(won, cand, won_slot)
+        cur2 = fp[cand]
+        slots = torch.where((slots < 0) & mask & (cur2 == want), cand, slots)
+        poff = torch.where(
+            (slots < 0) & mask & (cur2 != 0) & (cur2 != want), poff + 1, poff
+        )
+    coords_tbl = _with_drop_row(m.coords)
+    coords_tbl[won_slot] = coords  # winners hold unique slots
+    coords_tbl = coords_tbl[:cap]
+
+    assigned = (slots >= 0) & mask
+    n_dropped = torch.sum(mask & ~assigned, dtype=torch.int32)
+    sl = torch.where(assigned, slots, cap)
+
+    # moment saturation: stop accumulating once a voxel is very full
+    room = m.moments[torch.clamp(sl, 0, cap - 1), 0] < cfg.max_points_per_voxel
+    w = (assigned & room).to(torch.float32)
+    rel = xyz - _voxel_center(coords, cfg.voxel_size)
+    upd = torch.cat([torch.ones_like(w)[:, None], rel, _outer6(rel)], dim=-1) * w[:, None]
+    # index_add_ sums duplicates in index order on the CPU and with atomics
+    # (run-dependent order) on CUDA; the JAX path is bit-deterministic
+    moments = _with_drop_row(m.moments).index_add_(0, sl, upd)[:cap]
+
+    m = m._replace(fp=fp, coords=coords_tbl, moments=moments)
+    if refresh_planes:
+        # duplicates write identical values, so the scatter is deterministic
+        nrm, dd, pv = _fit_planes(m, cfg, sl)
+        normal = _with_drop_row(m.normal)
+        normal[sl] = nrm
+        d = _with_drop_row(m.d)
+        d[sl] = dd
+        plane_valid = _with_drop_row(m.plane_valid)
+        plane_valid[sl] = pv
+        m = m._replace(normal=normal[:cap], d=d[:cap], plane_valid=plane_valid[:cap])
+    return m, n_dropped
+
+
+def _fit_planes(m: VoxelMap, cfg: VoxelMapConfig, slots):
+    """Fit planes from the moments stored at ``slots`` (clipped gather)."""
+    sl = torch.clamp(slots, 0, cfg.capacity - 1)
+    mom = m.moments[sl]
+    c = mom[:, 0]
+    safe_c = torch.clamp(c, min=1.0)
+    mean_rel = mom[:, 1:4] / safe_c[:, None]
+    cov = _unpack_sym(mom[:, 4:10]) / safe_c[:, None, None] - (
+        mean_rel[:, :, None] * mean_rel[:, None, :]
+    )
+    normal, lam = smallest_eigvec3(cov)
+    center = _voxel_center(m.coords[sl], cfg.voxel_size)
+    mean_world = center + mean_rel
+    d = -torch.sum(normal * mean_world, dim=-1)
+    valid = (c >= cfg.min_points) & (lam[..., 0] < cfg.plane_var_thresh)
+    return normal, d, valid.to(torch.int32)
+
+
+def _fit_rvar(xyz, mean_world, cov, normal, lam, tot_c, cfg):
+    """Per-query residual-variance inflation from surfel-fit uncertainty:
+    ``(λ₀/c)·(1 + in-plane Mahalanobis offset)`` with λ and Σ floored by
+    ``cfg.fit_noise_floor`` (see the JAX docstring for the derivation)."""
+    eps = cfg.fit_noise_floor
+    rq = xyz - mean_world
+    t0 = torch.sum(normal * rq, dim=-1)
+    rp = rq - t0[..., None] * normal
+    a = cov[..., 0, 0] + eps
+    b = cov[..., 0, 1]
+    c = cov[..., 0, 2]
+    d = cov[..., 1, 1] + eps
+    e = cov[..., 1, 2]
+    f = cov[..., 2, 2] + eps
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    det = torch.clamp(a * A + b * B + c * C, min=1e-18)
+    x, y, z = rp[..., 0], rp[..., 1], rp[..., 2]
+    sx = A * x + B * y + C * z
+    sy = B * x + (a * f - c * c) * y + (b * c - a * e) * z
+    sz = C * x + (b * c - a * e) * y + (a * d - b * b) * z
+    inplane = torch.clamp((x * sx + y * sy + z * sz) / det, min=0.0)
+    lam0 = torch.clamp(lam[..., 0], min=0.0)
+    return (lam0 + eps) / torch.clamp(tot_c, min=1.0) * (1.0 + inplane)
+
+
+_STENCIL7 = np.array(
+    [[0, 0, 0], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+    dtype=np.int32,
+)
+
+
+def _merged_fit(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, coords0, pools):
+    """Merge the moments of the voxels ``pools`` (each (N, 3) coords),
+    re-referenced to the query voxel's centre, and fit one plane per query.
+    Returns ``(normal, d, valid, rvar)``."""
+    n = xyz.shape[0]
+    dev = xyz.device
+    c0 = _voxel_center(coords0, cfg.voxel_size)
+    tot_c = torch.zeros((n,), dtype=torch.float32, device=dev)
+    tot_s = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    tot_o = torch.zeros((n, 3, 3), dtype=torch.float32, device=dev)
+    for coords in pools:
+        slots, found = _find_slots(m, cfg, coords, mask)
+        sl = torch.clamp(slots, 0, cfg.capacity - 1)
+        mom = m.moments[sl] * found.to(torch.float32)[:, None]  # 1 gather
+        ci = mom[:, 0]
+        si = mom[:, 1:4]
+        oi = _unpack_sym(mom[:, 4:10])
+        # shift moments from neighbour centre c_i to the query voxel centre
+        dc = _voxel_center(coords, cfg.voxel_size) - c0
+        tot_c = tot_c + ci
+        tot_s = tot_s + si + ci[:, None] * dc
+        cross = si[:, :, None] * dc[:, None, :]
+        tot_o = (
+            tot_o
+            + oi
+            + cross
+            + cross.transpose(-1, -2)
+            + ci[:, None, None] * (dc[:, :, None] * dc[:, None, :])
+        )
+    safe_c = torch.clamp(tot_c, min=1.0)
+    mean = tot_s / safe_c[:, None]
+    cov = tot_o / safe_c[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    normal, lam = smallest_eigvec3(cov)
+    mean_world = c0 + mean
+    d = -torch.sum(normal * mean_world, dim=-1)
+    valid = mask & (tot_c >= cfg.min_points) & (lam[..., 0] < cfg.plane_var_thresh)
+    rvar = _fit_rvar(xyz, mean_world, cov, normal, lam, tot_c, cfg)
+    return normal, d, valid, rvar
+
+
+def query_planes_merged(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
+    """Plane fit from moments merged over the 7-voxel face stencil.
+    Returns ``(normal, d, valid, rvar)``."""
+    coords0 = _voxel_coords(xyz, cfg.voxel_size)
+    pools = [
+        torch.stack([coords0[:, i] + int(off[i]) for i in range(3)], dim=-1)
+        for off in _STENCIL7
+    ]
+    return _merged_fit(m, cfg, xyz, mask, coords0, pools)
+
+
+def query_planes_merged3(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
+    """Plane fit from the query's own voxel merged with its two dominant
+    face neighbours (one per largest in-voxel offset axis)."""
+    coords0 = _voxel_coords(xyz, cfg.voxel_size)
+    c0 = _voxel_center(coords0, cfg.voxel_size)
+    off = xyz - c0
+    aoff = torch.abs(off)
+    axes = torch.arange(3, device=xyz.device)
+    ax1 = torch.argmax(aoff, dim=-1)
+    oh1 = (axes[None, :] == ax1[:, None]).to(torch.float32)
+    # second-largest axis: mask out the winner and argmax again
+    ax2 = torch.argmax(aoff * (1.0 - oh1) - oh1, dim=-1)
+    oh2 = (axes[None, :] == ax2[:, None]).to(torch.float32)
+    sgn = torch.sign(off)
+    nb1 = coords0 + (sgn * oh1).to(torch.int32)
+    nb2 = coords0 + (sgn * oh2).to(torch.int32)
+    return _merged_fit(m, cfg, xyz, mask, coords0, (coords0, nb1, nb2))
+
+
+def evict_far(m: VoxelMap, cfg: VoxelMapConfig, center_xyz, det_range):
+    """Clear voxels farther than ``det_range`` from ``center_xyz``."""
+    centers = _voxel_center(m.coords, cfg.voxel_size)
+    dist2 = torch.sum((centers - center_xyz) ** 2, dim=-1)
+    keep = (m.fp != 0) & (dist2 < det_range * det_range)
+    keepf = keep.to(torch.float32)
+    keepi = keep.to(torch.int32)
+    return m._replace(
+        fp=m.fp * keepi,
+        coords=m.coords * keepi[:, None],
+        moments=m.moments * keepf[:, None],
+        normal=m.normal * keepf[:, None],
+        d=m.d * keepf,
+        plane_valid=m.plane_valid * keepi,
+    )

@@ -1,0 +1,203 @@
+"""The port's engine as a whole: parity with the JAX engine over the first
+scans of the loop feed of ``tests/test_engine.py``, the full loop run
+through the port with that test's gates, the import boundary (no JAX in
+the port) and the configuration surface.
+
+Tolerance for the engine parity: realtime poses within 2 cm, keyframe
+decisions identical. This feed moves 0.63 m per scan and starts on a
+one-scan map, and the room's floor lies on a voxel boundary, so float32
+rounding alone moves the result: the JAX engine itself ends 1.37 cm away
+after 10 scans when its start is moved by 1 µm (measured on this feed);
+the port ends 1.38 cm from it.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from fastliosam_tpu import loop as jloop  # noqa: E402
+from fastliosam_tpu import map as jmap  # noqa: E402
+from fastliosam_tpu import odom as jodom  # noqa: E402
+from fastliosam_tpu import pgo as jpgo  # noqa: E402
+from fastliosam_tpu import runtime as jrt  # noqa: E402
+from fastliosam_tpu.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence  # noqa: E402
+from fastliosam_tpu_torch import loop as tloop  # noqa: E402
+from fastliosam_tpu_torch import map as tmap  # noqa: E402
+from fastliosam_tpu_torch import odom as todom  # noqa: E402
+from fastliosam_tpu_torch import pgo as tpgo  # noqa: E402
+from fastliosam_tpu_torch import runtime as trt  # noqa: E402
+from fastliosam_tpu_torch.eval import ate_rmse  # noqa: E402
+from fastliosam_tpu_torch.utils import host_reads, reset_host_reads  # noqa: E402
+
+from _torch_parity import T  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+
+# the engine configuration of tests/test_engine.py: make_engine
+CFGS = dict(
+    odom_cfg=dict(point_filter_num=1, blind=0.5, filter_size_surf=0.3,
+                  num_ds_points=2048, evict_every=10_000),
+    map_cfg=dict(capacity=1 << 14, voxel_size=0.4, min_points=4),
+    loop_cfg=dict(radius=8.0, time_gap=6.0, num_submap_keyframes=2, voxel_res=0.25,
+                  submap_points=8192, max_iterations=25, nn_chunk=1024),
+    pgo_cfg=dict(max_keyframes=128, max_between=256, max_gps=64, lm_iters=8,
+                 pcg_iters=96),
+    cfg=dict(keyframe_threshold=0.5, loop_check_every=4, kf_cloud_points=2048,
+             kf_cloud_voxel=0.25, gps_dist_thres=2.0, min_traj_len=3.0),
+)
+JAX_CLS = dict(odom_cfg=jodom.OdomConfig, map_cfg=jmap.VoxelMapConfig,
+               loop_cfg=jloop.LoopConfig, pgo_cfg=jpgo.PoseGraphConfig,
+               cfg=jrt.EngineConfig)
+PORT_CLS = dict(odom_cfg=todom.OdomConfig, map_cfg=tmap.VoxelMapConfig,
+                loop_cfg=tloop.LoopConfig, pgo_cfg=tpgo.PoseGraphConfig,
+                cfg=trt.EngineConfig)
+
+
+@pytest.fixture(scope="module")
+def loop_feed():
+    """The loop feed of tests/test_engine.py (~1.3 laps of a small circle)."""
+    world = PlaneWorld.room(size=30.0, height=6.0, n_boxes=10, seed=1)
+    traj = Trajectory.circle(radius=8.0, period=16.0)
+    cfg = SimConfig(scan_rate=5.0, n_azimuth=256, n_elev=10, gyro_noise=0.001,
+                    acc_noise=0.01, gyro_bias=(0, 0, 0), acc_bias=(0, 0, 0), seed=3)
+    return simulate_sequence(world, traj, cfg, n_scans=105), traj
+
+
+def _imu(data, k, cap=64):
+    ts, gy, ac = data["imu"][k]
+    n = len(ts)
+    return (np.pad(ts, (0, cap - n), constant_values=1e9).astype(np.float32),
+            np.pad(gy, ((0, cap - n), (0, 0))).astype(np.float32),
+            np.pad(ac, ((0, cap - n), (0, 0))).astype(np.float32),
+            np.arange(cap) < n)
+
+
+def _run_jax(data, traj, n):
+    eng = jrt.SlamEngine(**{k: JAX_CLS[k](**v) for k, v in CFGS.items()})
+    R0, p0 = traj.pose(0.0)
+    eng.odom = eng.odom._replace(nav=eng.odom.nav._replace(
+        R=jnp.asarray(R0, jnp.float32), p=jnp.asarray(p0, jnp.float32),
+        v=jnp.asarray(traj.velocity(0.0), jnp.float32)))
+    poses = []
+    for k in range(n):
+        scan = jodom.Scan(*map(jnp.asarray, data["scans"][k]))
+        imu = jodom.ImuBatch(*map(jnp.asarray, _imu(data, k)))
+        poses.append(eng.process(scan, imu, data["stamps"][k], data["scan_dt"]))
+    return eng, np.stack(poses)
+
+
+def _run_port(data, traj, n):
+    eng = trt.SlamEngine(**{k: PORT_CLS[k](**v) for k, v in CFGS.items()}, device="cpu")
+    R0, p0 = traj.pose(0.0)
+    eng.odom = eng.odom._replace(nav=eng.odom.nav._replace(
+        R=T(R0, np.float32), p=T(p0, np.float32), v=T(traj.velocity(0.0), np.float32)))
+    poses = []
+    for k in range(n):
+        scan = todom.Scan(*map(T, data["scans"][k]))
+        imu = todom.ImuBatch(*map(T, _imu(data, k)))
+        poses.append(eng.process(scan, imu, data["stamps"][k], data["scan_dt"]))
+    return eng, np.stack(poses)
+
+
+def test_engine_first_scans_match_jax(loop_feed):
+    data, traj = loop_feed
+    n = 10
+    jeng, jposes = _run_jax(data, traj, n)
+    teng, tposes = _run_port(data, traj, n)
+    assert teng.kf.n == jeng.kf.n > 5
+    np.testing.assert_allclose(tposes, jposes, atol=2e-2)
+    np.testing.assert_allclose(teng.keyframe_poses(), np.asarray(jeng.keyframe_poses()),
+                               atol=2e-2)
+    np.testing.assert_allclose(teng.keyframe_stamps(), np.asarray(jeng.keyframe_stamps()))
+    # the odometry between-factors: same count, same relative poses (to the
+    # same 2 cm: they are differences of the poses above)
+    jg, tg = jeng.graph, teng.graph
+    assert int(tg.n_bt) == int(jg.n_bt) == n - 1
+    np.testing.assert_allclose(tg.bt_rel[: n - 1].numpy(), np.asarray(jg.bt_rel[: n - 1]),
+                               atol=2e-2)
+
+
+def test_port_engine_closes_loops(loop_feed):
+    """tests/test_engine.py: test_full_pipeline_with_loops, through the port."""
+    data, traj = loop_feed
+    reset_host_reads()
+    eng, poses = _run_port(data, traj, len(data["scans"]))
+    assert eng.kf.n > 10
+    assert len(eng.loop_pairs) >= 1, "no loop closures found on revisit"
+    assert eng.solve_count >= 1
+    gt = np.stack([g[1] for g in data["gt"]])
+    assert ate_rmse(poses[:, :3, 3], gt) < 0.3
+    assert np.all(np.isfinite(eng.keyframe_poses()))
+    # verifications resolve one attempt after their launch
+    assert len(eng.loop_attempts) >= len(eng.loop_pairs)
+    assert np.all(np.asarray([int(m) for m in eng.match_counts[2:]]) > 500)
+    # host syncs: one readback per scan plus the gated reads — not more
+    assert host_reads() < 10 * len(data["scans"])
+
+
+def _imports(path):
+    tree = ast.parse(Path(path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = list((REPO / "fastliosam_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for f in files:
+        for mod in _imports(f):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "fastliosam_tpu"), (f, mod)
+    code = (
+        "import importlib, pkgutil, sys, json\n"
+        "import fastliosam_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'fastliosam_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fastliosam_tpu')]\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("name", sorted(JAX_CLS))
+def test_config_namedtuples_match_jax(name):
+    j, t = JAX_CLS[name], PORT_CLS[name]
+    assert t._fields == j._fields
+    assert t._field_defaults == j._field_defaults
+    # a JAX config carries straight across
+    jc = j(**CFGS[name])
+    assert t(**jc._asdict())._asdict() == jc._asdict()
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trt.SlamEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpgo.make_graph(tpgo.PoseGraphConfig(max_keyframes=4))
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        trt.SlamEngine(cfg=trt.EngineConfig(use_gps=True), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tloop.verify_loop(torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool),
+                          torch.eye(4).repeat(2, 1, 1), torch.ones(2, dtype=torch.bool),
+                          1, 0, tloop.LoopConfig(icp_method="p2pl"), device="cpu")

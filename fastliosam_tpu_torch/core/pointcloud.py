@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from .segment import scatter_add
+
 PAD_VALUE = 1.0e6
 _SENTINEL_KEY = 0x3FFFFFFF
 
@@ -57,12 +59,10 @@ def voxel_downsample(cloud: Cloud, voxel_size: float) -> Cloud:
     is_start[1:] = (skeys[1:] != skeys[:-1]).to(torch.int64)
     seg = torch.cumsum(is_start, 0) - 1
     w = smask.to(torch.float32)
-    # segment sums: index_add_ in sorted order (on CUDA it is atomic, so the
-    # summation order — and the last bits of a centroid — may vary by run)
-    sums = torch.zeros((n, 3), dtype=torch.float32, device=dev).index_add_(
-        0, seg, sxyz * w[:, None]
-    )
-    cnts = torch.zeros((n,), dtype=torch.float32, device=dev).index_add_(0, seg, w)
+    # segment sums of [xyz * w, w] in sorted order, in the same fixed order
+    # on the card as on the CPU (no atomics: see core/segment.py)
+    acc = scatter_add(seg, torch.cat([sxyz * w[:, None], w[:, None]], dim=1), n)
+    sums, cnts = acc[:, :3], acc[:, 3]
     centroids = sums / torch.clamp(cnts, min=1.0)[:, None]
     occupied = cnts > 0.0
     # pack occupied segments to the front; row n takes the dropped writes

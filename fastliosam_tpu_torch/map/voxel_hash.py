@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import segment
 from ..core.eigh3 import smallest_eigvec3
 from ..utils.device import resolve_device
 
@@ -217,9 +218,10 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     w = (assigned & room).to(torch.float32)
     rel = xyz - _voxel_center(coords, cfg.voxel_size)
     upd = torch.cat([torch.ones_like(w)[:, None], rel, _outer6(rel)], dim=-1) * w[:, None]
-    # index_add_ sums duplicates in index order on the CPU and with atomics
-    # (run-dependent order) on CUDA; the JAX path is bit-deterministic
-    moments = _with_drop_row(m.moments).index_add_(0, sl, upd)[:cap]
+    # duplicates sum in index order on the CPU and on the card alike (no
+    # atomics: core/segment.py), so the map is bit-deterministic as in JAX
+    moments = segment.index_add_(_with_drop_row(m.moments), segment.segment_plan(sl),
+                                 upd)[:cap]
 
     m = m._replace(fp=fp, coords=coords_tbl, moments=moments)
     if refresh_planes:

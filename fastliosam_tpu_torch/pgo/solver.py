@@ -5,17 +5,19 @@ Each LM iteration re-linearizes every factor in one batch and solves the
 damped normal equations with matrix-free block-Jacobi preconditioned CG
 (``A·v`` = gathers + scatter-adds over the factor lists) or, with
 ``linear_solver="dense"``, a Cholesky factorization. Step acceptance is a
-``torch.where`` on device, so a solve reads nothing back. ``index_add_``
-scatter-adds run in a run-dependent order on CUDA, so repeated solves
-agree to float32 rounding, not bit for bit.
+``torch.where`` on device, so a solve reads nothing back. The scatter-adds
+of the normal equations and the matvec sum in a fixed order
+(``core/segment.py``; one sort per linearization), so a solve is
+bit-for-bit repeatable on the card, as in JAX.
 
-``marginal_covariance`` (GPS only) is a later slice.
+``marginal_covariance`` solves the six columns of H⁻¹ of one keyframe
+with the same matvec and preconditioner (the GPS pose-covariance gate).
 """
 from __future__ import annotations
 
 import torch
 
-from ..core import se3, so3
+from ..core import se3, segment, so3
 from ..utils.device import resolve_device, to_device, upload
 from ..utils.precision import geometry_precision
 from .graph import PoseGraph, PoseGraphConfig
@@ -94,28 +96,34 @@ def graph_cost(g: PoseGraph, cfg: PoseGraphConfig, prior_pose=None):
 def _assemble_dense(g: PoseGraph, cfg: PoseGraphConfig, prior_pose):
     """Full (K, K, 6, 6) Gauss-Newton normal matrix + (K, 6) rhs."""
     K = g.poses.shape[0]
-    dev = g.poses.device
     rb, Ji, Jj = _between_residuals(g, cfg)
     rg, Jg = _gps_residuals(g, cfg)
     rp, Jp = _prior_residual(g, cfg, prior_pose)
     bi, bj, gi = _long(g.bt_i), _long(g.bt_j), _long(g.gps_idx)
 
-    Hf = torch.zeros((K * K, 6, 6), dtype=torch.float32, device=dev)
-    Hf.index_add_(0, bi * K + bi, torch.einsum("fki,fkj->fij", Ji, Ji))
-    Hf.index_add_(0, bj * K + bj, torch.einsum("fki,fkj->fij", Jj, Jj))
     Hij = torch.einsum("fki,fkj->fij", Ji, Jj)
-    Hf.index_add_(0, bi * K + bj, Hij)
-    Hf.index_add_(0, bj * K + bi, Hij.transpose(-1, -2))
-    Hf.index_add_(0, gi * K + gi, torch.einsum("fki,fkj->fij", Jg, Jg))
+    Hf = segment.scatter_add(
+        torch.cat([bi * K + bi, bj * K + bj, bi * K + bj, bj * K + bi, gi * K + gi]),
+        torch.cat([torch.einsum("fki,fkj->fij", Ji, Ji),
+                   torch.einsum("fki,fkj->fij", Jj, Jj),
+                   Hij, Hij.transpose(-1, -2),
+                   torch.einsum("fki,fkj->fij", Jg, Jg)]),
+        K * K,
+    )
     Hf[0] += Jp.T @ Jp
     H = Hf.reshape(K, K, 6, 6)
 
-    b = torch.zeros((K, 6), dtype=torch.float32, device=dev)
-    b.index_add_(0, bi, -torch.einsum("fij,fi->fj", Ji, rb))
-    b.index_add_(0, bj, -torch.einsum("fij,fi->fj", Jj, rb))
-    b.index_add_(0, gi, -torch.einsum("fij,fi->fj", Jg, rg))
+    b = segment.scatter_add(torch.cat([bi, bj, gi]), _rhs_terms(Ji, Jj, Jg, rb, rg), K)
     b[0] += -(Jp.T @ rp)
     return H, b
+
+
+def _rhs_terms(Ji, Jj, Jg, rb, rg):
+    """The per-factor terms of ``b = -JᵀWr``, in the order of the
+    concatenated ``[bt_i, bt_j, gps_idx]`` scatter."""
+    return -torch.cat([torch.einsum("fij,fi->fj", Ji, rb),
+                       torch.einsum("fij,fi->fj", Jj, rb),
+                       torch.einsum("fij,fi->fj", Jg, rg)])
 
 
 def _dense_step(g: PoseGraph, cfg: PoseGraphConfig, prior_pose, lam):
@@ -140,27 +148,30 @@ def _linearize(g: PoseGraph, cfg: PoseGraphConfig, prior_pose):
     rp, Jp = _prior_residual(g, cfg, prior_pose)
     bi, bj, gi = _long(g.bt_i), _long(g.bt_j), _long(g.gps_idx)
 
-    b = torch.zeros((K, 6), dtype=torch.float32, device=dev)
-    b.index_add_(0, bi, -torch.einsum("fij,fi->fj", Ji, rb))
-    b.index_add_(0, bj, -torch.einsum("fij,fi->fj", Jj, rb))
-    b.index_add_(0, gi, -torch.einsum("fij,fi->fj", Jg, rg))
+    # one sort of the factor endpoints serves b, the diagonal blocks and
+    # every matvec of this linearization
+    plan = segment.segment_plan(torch.cat([bi, bj, gi]))
+
+    def scatter(terms, row_shape):
+        zeros = torch.zeros((K,) + row_shape, dtype=torch.float32, device=dev)
+        return segment.index_add_(zeros, plan, terms)
+
+    b = scatter(_rhs_terms(Ji, Jj, Jg, rb, rg), (6,))
     b[0] += -(Jp.T @ rp)
 
-    Hd = torch.zeros((K, 6, 6), dtype=torch.float32, device=dev)
-    Hd.index_add_(0, bi, torch.einsum("fki,fkj->fij", Ji, Ji))
-    Hd.index_add_(0, bj, torch.einsum("fki,fkj->fij", Jj, Jj))
-    Hd.index_add_(0, gi, torch.einsum("fki,fkj->fij", Jg, Jg))
+    Hd = scatter(torch.cat([torch.einsum("fki,fkj->fij", Ji, Ji),
+                            torch.einsum("fki,fkj->fij", Jj, Jj),
+                            torch.einsum("fki,fkj->fij", Jg, Jg)]), (6, 6))
     Hd[0] += Jp.T @ Jp
     diag = torch.diagonal(Hd, dim1=-2, dim2=-1)
 
     def matvec(v, lam):
         """(JᵀWJ + lam·diag(H) + eps·I) v for v (K, 6)."""
         ub = torch.einsum("fij,fj->fi", Ji, v[bi]) + torch.einsum("fij,fj->fi", Jj, v[bj])
-        y = torch.zeros((K, 6), dtype=torch.float32, device=dev)
-        y.index_add_(0, bi, torch.einsum("fij,fi->fj", Ji, ub))
-        y.index_add_(0, bj, torch.einsum("fij,fi->fj", Jj, ub))
         ug = torch.einsum("fij,fj->fi", Jg, v[gi])
-        y.index_add_(0, gi, torch.einsum("fij,fi->fj", Jg, ug))
+        y = scatter(torch.cat([torch.einsum("fij,fi->fj", Ji, ub),
+                               torch.einsum("fij,fi->fj", Jj, ub),
+                               torch.einsum("fij,fi->fj", Jg, ug)]), (6,))
         y[0] += Jp.T @ (Jp @ v[0])
         return y + lam * diag * v + 1e-6 * v
 

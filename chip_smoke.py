@@ -2,24 +2,43 @@
 """Smoke test of the PyTorch/CUDA port (``fastliosam_tpu_torch``) on one
 NVIDIA GPU — the quickest proof that the port still builds and runs there.
 
-    python3 chip_smoke.py [--scans 150] [--out results.json] [--profile-scans N]
+    python3 chip_smoke.py [--scans 150] [--corridor-scans 400] [--out results.json]
+                          [--profile-scans N]
 
 Phases, each of which fails the script (non-zero exit) if it fails:
-  1. the card's name and power limit (nvidia-smi);
+  1. the card's name and power limit (nvidia-smi); the two sim feeds start
+     generating in two worker processes (they take ~1-2 minutes of host
+     time and are cached under build/);
   2. build every CUDA kernel of the package from ``fastliosam_tpu_torch/csrc``
      (one nvcc per source, all started together) into ``build/kernels/``;
   3. kernel phase: each kernel against its plain PyTorch version on the card
-     at the main path's shapes plus ragged and all-masked ones, then timed
-     with CUDA events beside the plain version and a one-call PyTorch
-     yardstick that the port never calls;
-  4. slice phase: ``SlamEngine.process`` over the figure-8 loop feed at the
-     full width of the bench's loop-closing configuration (2048 x 16 rays =
-     32,768 points per scan, 8192 iEKF points, a 2^19-slot map, 16,384-point
-     loop submaps), with every kernel's launch count reset just before and
-     read just after, and the result held to ground truth (ATE < 0.10 m).
-With ``--profile-scans N`` a second engine run traces its last N scans with
-``torch.profiler`` (device time by kernel, the device's busy share); that
-run does not touch the launch counts. The line before the last is a JSON
+     at the main path's shapes plus ragged ones (the gathers bit for bit),
+     timed with CUDA events around back-to-back device work (fresh indices
+     for the gathers; ``utils/timing.py``) beside the plain
+     version, a one-call PyTorch yardstick that the port never calls, and
+     its bound; then the gather experiment entry point
+     (``fastliosam_tpu_torch.scripts.exp_gather``), the path of
+     ``take_along_axis``;
+  4. per-scan phase: ``SlamEngine.process`` over the figure-8 loop feed at
+     the full width of the bench's loop-closing configuration (2048 x 16
+     rays = 32,768 points per scan, 8192 iEKF points, a 2^19-slot map,
+     16,384-point loop submaps), run twice from ``reset()``: the two runs
+     must give bit-identical realtime trajectories and loop pairs, and the
+     result must hold to ground truth (ATE < 0.10 m);
+  5. chunked phase: ``process_chunk_deferred`` (chunk 5) over the same feed,
+     twice from ``reset()`` with the same replay check, ATE < 0.10 m, at
+     least one loop, at most one host read per chunk for odometry and
+     keyframing;
+  6. GPS phase: the bench's GPS corridor (``bench.py:
+     build_corridor_sequence`` and ``bench_gps_corridor``), fixes through
+     WGS84 geodesy, ``process_chunk`` with GPS off and on; with GPS on at
+     least two GPS factors, a solve, and ATE < 2.0 m.
+Every kernel's launch count is set to 0 just before each path and read
+just after; each kernel must have launched on its path (the nearest
+neighbours on the loop-closing phases 4 and 5, the row gather on 4-6,
+take_along_axis on the experiment entry point). With ``--profile-scans N``
+an extra per-scan run traces its last N scans with ``torch.profiler``; it
+does not touch the launch counts. The line before the last is a JSON
 object describing every kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -28,9 +47,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -48,20 +69,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
-    import torch
+    from fastliosam_tpu_torch.utils.timing import device_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return device_ms(fn, [()] * reps)
 
 
 # ---------------------------------------------------------------------------
@@ -131,23 +143,109 @@ def check_nn(dev, seed: int):
     }
 
 
-# ---------------------------------------------------------------------------
-# slice phase
-# ---------------------------------------------------------------------------
-def figure8_feed(n_scans: int, seed: int = 11) -> dict:
-    """The bench's loop-closing feed: a lemniscate through a 60 m room, 2048
-    azimuths x 16 rings at 10 Hz, IMU at 200 Hz. Generation takes ~0.6 s a
-    scan on the host, so it is cached under build/."""
-    cache = ROOT / "build" / f"chip_smoke_fig8_{n_scans}_{seed}.npz"
-    if cache.exists():
-        return dict(np.load(cache))
-    from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+def _gather_bytes(idx_np, d, c, valid=None, idx_itemsize=None):
+    """HBM bytes a row gather must move: the distinct 32-byte sectors of the
+    rows it reads (after the wrap/clamp rule), the index (and mask) read and
+    the output write."""
+    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
 
-    world = PlaneWorld.room(size=60.0, height=10.0, n_boxes=25, seed=seed)
-    traj = Trajectory.figure8(scale=12.0, period=12.0, z_amp=0.2)
-    cfg = SimConfig(scan_rate=10.0, n_azimuth=2048, n_elev=16, max_range=120.0,
-                    gyro_noise=0.001, acc_noise=0.01, seed=seed, time_groups=32)
-    data = simulate_sequence(world, traj, cfg, n_scans=n_scans)
+    i = idx_np.astype(np.int64)
+    i = np.clip(np.where(i < 0, i + c, i), 0, c - 1)
+    if valid is not None:
+        i = i[valid]
+    n = len(idx_np)
+    return (sector_bytes(i, d) + n * (idx_itemsize or idx_np.itemsize)
+            + (n if valid is not None else 0) + n * d * 4)
+
+
+def check_gather(dev, seed: int):
+    """The row gather against its plain version, bit for bit: the
+    association's reads of a 2^19-slot map — the (C, 10) moments (with and
+    without the found-mask), the (C,) int32 fingerprints, the (C, 3) int32
+    voxel coordinates — with 8192 indices; the (2^19, 16) and (2^14, 16)
+    tables of experiments A and B; a ragged 1000 x 3 case with negative and
+    out-of-range indices. Each is timed over 10 fresh index sets beside the
+    plain version and ``torch.index_select``. Returns the record of the
+    moment read (the kernels line) and every case's record."""
+    import torch
+
+    from fastliosam_tpu_torch.ops import gather_cuda
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    C, N = 1 << 19, 8192
+    cases = [  # name, table shape, dtype, n, index dtype, masked, out of range
+        ("moments", (C, 10), np.float32, N, np.int64, False, False),
+        ("moments_found_mask", (C, 10), np.float32, N, np.int64, True, False),
+        ("fingerprints", (C,), np.int32, N, np.int64, False, False),
+        ("voxel_coords", (C, 3), np.int32, N, np.int64, False, False),
+        ("exp_A", (C, 16), np.float32, N, np.int32, False, False),
+        ("exp_B", (1 << 14, 16), np.float32, N, np.int32, False, False),
+        ("ragged", (1000, 3), np.int32, 1000, np.int32, True, True),
+    ]
+    rng = np.random.default_rng(seed)
+    records = {}
+    for name, shape, dtype, n, idx_dtype, masked, oor in cases:
+        c = shape[0]
+        d = shape[1] if len(shape) == 2 else 1
+        if dtype == np.int32:
+            tab = rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int64).astype(np.int32)
+        else:
+            tab = rng.normal(size=shape).astype(np.float32)
+        table = torch.from_numpy(tab).to(dev)
+        lo, hi = (-2 * c, 2 * c) if oor else (0, c)
+        idx_np = [rng.integers(lo, hi, size=n).astype(idx_dtype) for _ in range(10)]
+        val_np = [rng.uniform(size=n) > 0.3 for _ in range(10)] if masked else [None] * 10
+        idx = [torch.from_numpy(a).to(dev) for a in idx_np]
+        val = [None if v is None else torch.from_numpy(v).to(dev) for v in val_np]
+        got = gather_cuda.gather_rows_cuda(table, idx[0], val[0])
+        want = gather_cuda.gather_rows_ref(table, idx[0], val[0])
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                      want.view(torch.int32)):
+            raise AssertionError(f"gather_rows {name}: kernel and plain version differ")
+        sets = list(zip(idx, val))
+        ms = device_ms(lambda i, v: gather_cuda.gather_rows_cuda(table, i, v), sets)
+        plain_ms = device_ms(lambda i, v: gather_cuda.gather_rows_ref(table, i, v), sets)
+        library_ms = None
+        if not masked and not oor:  # one library call computes the same function
+            library_ms = device_ms(lambda i: torch.index_select(table, 0, i),
+                                       [(i,) for i in idx])
+        nbytes = _gather_bytes(idx_np[0], d, c, val_np[0])
+        rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "library_ms": library_ms, "table": list(shape), "n": n, "bytes": nbytes}
+        records[name] = rec
+        lib = "n/a (masked)" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"  gather_rows {name} {shape} x {n}: equal, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, index_select {lib}, bound {rec['bound_ms']:.5f} ms "
+              f"({nbytes} HBM bytes)")
+    main = {k: records["moments"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+    return main, records
+
+
+def experiment_phase(dev):
+    """The gather experiment entry point, once: the path of take_along_axis
+    (its launch count is read around this run). Returns the record of the
+    map-size take_along_axis (the kernels line), the launches and every
+    experiment's record."""
+    from fastliosam_tpu_torch.ops import KERNEL_MODULES
+    from fastliosam_tpu_torch.scripts import exp_gather
+
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
+    recs = exp_gather.run(dev, print_fn=lambda line: print("  " + line))
+    launches = {mod.KERNEL["name"]: mod.launches for mod in KERNEL_MODULES}
+    big = next(r for r in recs if r["name"] == "tal_big")
+    main = {"max_abs_err": 0.0, **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms")}}
+    return main, launches, recs
+
+
+# ---------------------------------------------------------------------------
+# feeds (made in worker processes while the kernels build)
+# ---------------------------------------------------------------------------
+def _pack(data, traj) -> dict:
     cap = max(32, max(len(b[0]) for b in data["imu"]))
 
     def pad(b, i, fill=0.0):
@@ -170,14 +268,69 @@ def figure8_feed(n_scans: int, seed: int = 11) -> dict:
         "R0": R0.astype(np.float32), "p0": p0.astype(np.float32),
         "v0": traj.velocity(0.0).astype(np.float32),
     }
-    cache.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(cache, **feed)
+    if data["gps"]:
+        feed["gps_t"] = np.asarray([g[0] for g in data["gps"]], np.float64)
+        feed["gps_xyz"] = np.stack([g[1] for g in data["gps"]]).astype(np.float64)
     return feed
 
 
-def make_engine(dev):
-    """The bench's loop-closing pipeline configuration (bench.py
-    make_engine_for, chunk 5, 128 keyframes, 256 between-factors)."""
+def _cached_feed(name: str, build) -> str:
+    """Make the feed once and cache it under build/; returns its path."""
+    cache = ROOT / "build" / f"chip_smoke_{name}.npz"
+    if not cache.exists():
+        cache.parent.mkdir(parents=True, exist_ok=True)
+        tmp = cache.with_suffix(".tmp.npz")
+        np.savez(tmp, **build())
+        tmp.replace(cache)
+    return str(cache)
+
+
+def figure8_feed(n_scans: int, seed: int = 11) -> str:
+    """The bench's loop-closing feed (``bench.py: build_fig8_sequence``): a
+    lemniscate through a 60 m room, 2048 azimuths x 16 rings at 10 Hz, IMU
+    at 200 Hz."""
+    def build():
+        from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+
+        world = PlaneWorld.room(size=60.0, height=10.0, n_boxes=25, seed=seed)
+        traj = Trajectory.figure8(scale=12.0, period=12.0, z_amp=0.2)
+        cfg = SimConfig(scan_rate=10.0, n_azimuth=2048, n_elev=16, max_range=120.0,
+                        gyro_noise=0.001, acc_noise=0.01, seed=seed, time_groups=32)
+        return _pack(simulate_sequence(world, traj, cfg, n_scans=n_scans), traj)
+
+    return _cached_feed(f"fig8_{n_scans}_{seed}", build)
+
+
+def corridor_feed(n_scans: int, seed: int = 3) -> str:
+    """The bench's GPS corridor (``bench.py: build_corridor_sequence``): a
+    400 m corridor whose planes are all ⊥ x beyond its clutter, a straight
+    run at 6 m/s with a strong accelerometer bias, 2048 x 16 rays to 60 m,
+    GPS at 10 Hz with 0.3 m noise."""
+    def build():
+        from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+
+        world = PlaneWorld.corridor(length=400.0, width=8.0, height=5.0, n_clutter=8,
+                                    clutter_span=15.0, seed=seed)
+        traj = Trajectory.straight(speed=6.0)
+        cfg = SimConfig(scan_rate=10.0, n_azimuth=2048, n_elev=16, max_range=60.0,
+                        gyro_noise=0.001, acc_noise=0.01, acc_bias=(0.08, -0.03, 0.04),
+                        seed=seed, time_groups=32, gps_rate=10.0, gps_noise=0.3)
+        return _pack(simulate_sequence(world, traj, cfg, n_scans=n_scans), traj)
+
+    return _cached_feed(f"corridor_{n_scans}_{seed}", build)
+
+
+def load_feed(path: str) -> dict:
+    with np.load(path) as f:
+        return dict(f)
+
+
+# ---------------------------------------------------------------------------
+# engine phases
+# ---------------------------------------------------------------------------
+def make_engine(dev, max_kf: int = 128, max_between: int = 256, max_gps: int = 64,
+                chunk: int = 5):
+    """The bench's pipeline configuration (``bench.py: make_engine_for``)."""
     from fastliosam_tpu_torch.loop import LoopConfig
     from fastliosam_tpu_torch.map import VoxelMapConfig
     from fastliosam_tpu_torch.odom import OdomConfig
@@ -192,69 +345,313 @@ def make_engine(dev):
                                query_probes=2, insert_probes=2, claim_probes=2),
         loop_cfg=LoopConfig(radius=10.0, time_gap=4.0, num_submap_keyframes=5,
                             voxel_res=0.3, submap_points=16384),
-        pgo_cfg=PoseGraphConfig(max_keyframes=128, max_between=256, max_gps=64),
-        cfg=EngineConfig(keyframe_threshold=1.0, loop_check_every=5,
+        pgo_cfg=PoseGraphConfig(max_keyframes=max_kf, max_between=max_between,
+                                max_gps=max_gps),
+        cfg=EngineConfig(keyframe_threshold=1.0, loop_check_every=chunk,
                          kf_cloud_points=4096, kf_cloud_voxel=0.3),
         device=dev,
     )
 
 
-def run_engine(engine, feed, dev, n_scans: int, profile_from=None):
-    """Drive ``engine.process`` over the feed (staged on the card first, as
-    the bench stages its chunks). Returns per-phase host times and the
-    per-verification host-sync counts; with ``profile_from`` the scans from
-    that index on run under ``torch.profiler`` (returned as ``"prof"``)."""
+def _start(engine, feed, dev):
+    """reset() at the feed's initial state; the feed staged on the card (as
+    the bench stages its chunks)."""
     import torch
-
-    from fastliosam_tpu_torch.odom import ImuBatch, Scan
-    from fastliosam_tpu_torch.utils import host_reads
 
     engine.reset()
     engine.odom = engine.odom._replace(nav=engine.odom.nav._replace(
         R=torch.from_numpy(feed["R0"]).to(dev), p=torch.from_numpy(feed["p0"]).to(dev),
         v=torch.from_numpy(feed["v0"]).to(dev)))
-    g = {k: torch.from_numpy(np.asarray(feed[k])).to(dev)
-         for k in ("xyz", "toff", "mask", "imu_t", "imu_g", "imu_a", "imu_m")}
-    timing = {"verify_s": 0.0, "solve_s": 0.0, "verify_syncs": [], "verify_nn": []}
-    launch_verify, solve = engine._launch_verify, engine._solve
+    return {k: torch.from_numpy(np.asarray(feed[k])).to(dev)
+            for k in ("xyz", "toff", "mask", "imu_t", "imu_g", "imu_a", "imu_m")}
 
-    def timed_verify(query, cand):
+
+class _Probe:
+    """Host time, host reads and NN launches inside the engine's loop
+    verification, loop resolution and solve (wrapped on the instance)."""
+
+    NAMES = ("_launch_verify", "_resolve_pending_loop", "_solve")
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.s = {n: 0.0 for n in self.NAMES}
+        self.reads = {n: 0 for n in self.NAMES}
+        self.calls = {n: 0 for n in self.NAMES}
+        self.verify_reads, self.verify_nn = [], []
+
+    def __enter__(self):
         from fastliosam_tpu_torch.ops import nn_cuda
+        from fastliosam_tpu_torch.utils import host_reads
 
-        t0, s0, l0 = time.perf_counter(), host_reads(), nn_cuda.launches
-        launch_verify(query, cand)
-        timing["verify_s"] += time.perf_counter() - t0
-        timing["verify_syncs"].append(host_reads() - s0)
-        timing["verify_nn"].append(nn_cuda.launches - l0)
+        self.saved = {n: getattr(self.engine, n) for n in self.NAMES}
 
-    def timed_solve():
-        t0 = time.perf_counter()
-        solve()
-        timing["solve_s"] += time.perf_counter() - t0
+        def wrap(name, fn):
+            def call(*args):
+                t0, r0, l0 = time.perf_counter(), host_reads(), nn_cuda.launches
+                try:
+                    return fn(*args)
+                finally:
+                    self.s[name] += time.perf_counter() - t0
+                    self.reads[name] += host_reads() - r0
+                    self.calls[name] += 1
+                    if name == "_launch_verify":
+                        self.verify_reads.append(host_reads() - r0)
+                        self.verify_nn.append(nn_cuda.launches - l0)
+            return call
 
-    engine._launch_verify, engine._solve = timed_verify, timed_solve
+        for n, fn in self.saved.items():
+            setattr(self.engine, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.NAMES:
+            delattr(self.engine, n)  # back to the class's methods
+        return False
+
+
+def run_engine(engine, feed, dev, n_scans: int, profile_from=None):
+    """Drive ``engine.process`` over the feed. Returns host times, the
+    per-verification host reads and NN launches; with ``profile_from`` the
+    scans from that index on run under ``torch.profiler``."""
+    import torch
+
+    from fastliosam_tpu_torch.odom import ImuBatch, Scan
+
+    g = _start(engine, feed, dev)
     prof = None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in range(n_scans):
-        if k == profile_from:
-            from torch.profiler import ProfilerActivity, profile
+    with _Probe(engine) as probe:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n_scans):
+            if k == profile_from:
+                from torch.profiler import ProfilerActivity, profile
 
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.__enter__()
-            t_prof = time.perf_counter()
-        scan = Scan(g["xyz"][k], g["toff"][k], g["mask"][k])
-        imu = ImuBatch(g["imu_t"][k], g["imu_g"][k], g["imu_a"][k], g["imu_m"][k])
-        engine.process(scan, imu, float(feed["stamps"][k]), float(feed["scan_dt"]))
-    engine.finish()
-    torch.cuda.synchronize()
-    timing["total_s"] = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            scan = Scan(g["xyz"][k], g["toff"][k], g["mask"][k])
+            imu = ImuBatch(g["imu_t"][k], g["imu_g"][k], g["imu_a"][k], g["imu_m"][k])
+            engine.process(scan, imu, float(feed["stamps"][k]), float(feed["scan_dt"]))
+        engine.finish()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    timing = {"total_s": total, "verify_s": probe.s["_launch_verify"],
+              "solve_s": probe.s["_solve"], "verify_syncs": probe.verify_reads,
+              "verify_nn": probe.verify_nn}
     if prof is not None:
         prof.__exit__(None, None, None)
         timing["prof"], timing["prof_wall_s"] = prof, time.perf_counter() - t_prof
-    engine._launch_verify, engine._solve = launch_verify, solve
     return timing
+
+
+def run_chunks(engine, feed, dev, chunk: int, deferred: bool, fixes=None):
+    """Drive ``process_chunk`` (or its deferred form) over the feed in
+    chunks, as ``bench.py: _run_pipeline`` does, with the GPS fixes of each
+    chunk's time span. Returns host time and the host reads inside loop
+    verification, loop resolution and solves."""
+    import torch
+
+    from fastliosam_tpu_torch.odom import ImuBatch, Scan
+    from fastliosam_tpu_torch.utils import host_reads
+
+    g = _start(engine, feed, dev)
+    n = (len(feed["stamps"]) // chunk) * chunk
+    dt = float(feed["scan_dt"])
+    step = engine.process_chunk_deferred if deferred else engine.process_chunk
+    with _Probe(engine) as probe:
+        torch.cuda.synchronize()
+        r0, t0 = host_reads(), time.perf_counter()
+        for c in range(0, n, chunk):
+            sl = slice(c, c + chunk)
+            stamps = feed["stamps"][sl]
+            lo, hi = float(stamps[0]) - dt, float(stamps[-1])
+            gps = None if fixes is None else [f for f in fixes if lo <= f.stamp < hi]
+            step(Scan(g["xyz"][sl], g["toff"][sl], g["mask"][sl]),
+                 ImuBatch(g["imu_t"][sl], g["imu_g"][sl], g["imu_a"][sl], g["imu_m"][sl]),
+                 stamps, dt, gps=gps)
+        engine.finish()
+        torch.cuda.synchronize()
+        total, reads = time.perf_counter() - t0, host_reads() - r0
+    return {"total_s": total, "scans": n, "chunks": n // chunk, "host_reads": reads,
+            "loop_and_solve_reads": sum(probe.reads.values()),
+            "solve_s": probe.s["_solve"], "verify_s": probe.s["_launch_verify"]}
+
+
+def _ate(engine, feed) -> float:
+    rt = np.stack(engine.realtime_traj)[:, :3, 3]
+    return float(np.sqrt(np.mean(np.sum((rt - feed["gt_p"][: len(rt)]) ** 2, axis=1))))
+
+
+def _launch_counts(fn):
+    """Run ``fn()`` with every kernel's launch count set to 0 just before;
+    returns its result and the counts read just after."""
+    from fastliosam_tpu_torch.ops import KERNEL_MODULES
+
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
+    out = fn()
+    return out, {mod.KERNEL["name"]: mod.launches for mod in KERNEL_MODULES}
+
+
+def _replay(engine, first) -> bool:
+    """The replay check of a second run from reset(): bit-identical realtime
+    trajectory and the same loop pairs."""
+    traj, loops = first
+    return np.array_equal(np.stack(engine.realtime_traj), traj) and engine.loop_pairs == loops
+
+
+def _fail(phase, checks):
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase} failed: " + ", ".join(failed))
+
+
+def per_scan_phase(dev, feed, profile_scans: int = 0):
+    import torch
+
+    from fastliosam_tpu_torch.utils import host_read, host_reads, reset_host_reads
+
+    n_scans = len(feed["stamps"])
+    engine = make_engine(dev)
+    run_engine(engine, feed, dev, min(12, n_scans))  # warm-up: allocator, cuBLAS
+    reset_host_reads()
+    timing, launches = _launch_counts(lambda: run_engine(engine, feed, dev, n_scans))
+    syncs = host_reads()
+    ate = _ate(engine, feed)
+    matched = host_read(torch.stack(engine.match_counts))
+    first = (np.stack(engine.realtime_traj), list(engine.loop_pairs))
+    n_verify = len(engine.loop_attempts)
+    verify_n = len(timing["verify_syncs"])
+    result = {
+        "scans": n_scans,
+        "scans_per_s": n_scans / timing["total_s"],
+        "keyframes": engine.kf.n,
+        "loops": len(engine.loop_pairs),
+        "verifications": n_verify,
+        "solves": engine.solve_count,
+        "launches": launches,
+        "host_syncs_per_scan": syncs / n_scans,
+        "host_syncs_per_verification": (float(np.mean(timing["verify_syncs"]))
+                                        if verify_n else None),
+        "nn_launches_per_verification": (float(np.mean(timing["verify_nn"]))
+                                         if verify_n else None),
+        "verify_ms_each": 1e3 * timing["verify_s"] / verify_n if verify_n else None,
+        "solve_ms_each": (1e3 * timing["solve_s"] / engine.solve_count
+                          if engine.solve_count else None),
+        "host_s": {k: timing[k] for k in ("total_s", "verify_s", "solve_s")},
+        "ate_m": ate,
+        "min_matched_after_scan2": int(matched[2:].min()),
+        "loop_pairs": first[1],
+    }
+    poses = np.stack(engine.realtime_traj)
+    run_engine(engine, feed, dev, n_scans)  # the replay
+    result["replay_bit_identical"] = _replay(engine, first)
+    print("  " + json.dumps(result))
+    _fail("per-scan phase", {
+        "every pose finite": bool(np.all(np.isfinite(poses)))
+        and bool(np.all(np.isfinite(engine.keyframe_poses()))),
+        "n_matched > 500 after scan 2": result["min_matched_after_scan2"] > 500,
+        "at least one verification": n_verify >= 1,
+        "nearest_neighbors and gather_rows launched": launches["nearest_neighbors"] > 0
+        and launches["gather_rows"] > 0,
+        "ATE < 0.10 m": ate < 0.10,
+        "replay bit-identical": result["replay_bit_identical"],
+    })
+    if profile_scans > 0:  # a separate run: the main path's counts stay as read
+        start = max(0, n_scans - profile_scans)
+        prof_run = run_engine(engine, feed, dev, n_scans, profile_from=start)
+        result["profile"] = profile_summary(
+            prof_run["prof"], prof_run["prof_wall_s"], n_scans - start)
+    return result
+
+
+def chunked_phase(dev, feed, chunk: int = 5):
+    """process_chunk_deferred over the loop feed, twice from reset()."""
+    engine = make_engine(dev, chunk=chunk)
+    run, launches = _launch_counts(
+        lambda: run_chunks(engine, feed, dev, chunk, deferred=True))
+    first = (np.stack(engine.realtime_traj), list(engine.loop_pairs))
+    odom_reads = run["host_reads"] - run["loop_and_solve_reads"]
+    result = {
+        "scans": run["scans"], "chunk": chunk, "defer_depth": engine.cfg.defer_depth,
+        "scans_per_s": run["scans"] / run["total_s"],
+        "keyframes": engine.kf.n, "loops": len(engine.loop_pairs),
+        "verifications": len(engine.loop_attempts), "solves": engine.solve_count,
+        "launches": launches,
+        "host_syncs_per_chunk": run["host_reads"] / run["chunks"],
+        "odom_keyframe_reads_per_chunk": odom_reads / run["chunks"],
+        "host_s": {k: run[k] for k in ("total_s", "verify_s", "solve_s")},
+        "ate_m": _ate(engine, feed), "loop_pairs": first[1],
+    }
+    poses = np.stack(engine.realtime_traj)
+    run_chunks(engine, feed, dev, chunk, deferred=True)  # the replay
+    result["replay_bit_identical"] = _replay(engine, first)
+    print("  " + json.dumps(result))
+    _fail("chunked phase", {
+        "every pose finite": bool(np.all(np.isfinite(poses))),
+        "ATE < 0.10 m": result["ate_m"] < 0.10,
+        "at least one loop": result["loops"] >= 1,
+        "<= 1 host read per chunk for odometry + keyframing":
+            result["odom_keyframe_reads_per_chunk"] <= 1.0,
+        "nearest_neighbors and gather_rows launched": launches["nearest_neighbors"] > 0
+        and launches["gather_rows"] > 0,
+        "replay bit-identical": result["replay_bit_identical"],
+    })
+    return result
+
+
+def gps_fixes(feed, anchor=(22.3193, 114.1694, 10.0)):
+    """The corridor's world-frame fixes as GpsFix records through WGS84
+    geodesy from the bench's anchor (``bench.py: _fixes_from_data``)."""
+    import torch
+
+    from fastliosam_tpu_torch.core.geodesy import LocalCartesian
+    from fastliosam_tpu_torch.runtime import GpsFix
+
+    lc = LocalCartesian.from_origin(*anchor)
+    lat, lon, alt = (t.numpy() for t in lc.reverse(
+        torch.from_numpy(feed["gps_xyz"].astype(np.float32))))
+    return [GpsFix(stamp=float(ts), lat=float(a), lon=float(b), alt=float(h),
+                   cov_xyz=(0.25, 0.25, 1.0))
+            for ts, a, b, h in zip(feed["gps_t"], lat, lon, alt)]
+
+
+def gps_phase(dev, feed, chunk: int = 5):
+    """The bench's corridor (``bench.py: bench_gps_corridor``): process_chunk
+    with GPS off, then on with the bench's GPS configuration."""
+    engine = make_engine(dev, max_kf=256, max_between=512, max_gps=256, chunk=chunk)
+    off, launches_off = _launch_counts(
+        lambda: run_chunks(engine, feed, dev, chunk, deferred=False))
+    ate_off = _ate(engine, feed)
+    fixes = gps_fixes(feed)
+    engine.pgo_cfg = engine.pgo_cfg._replace(gps_huber_delta=2.0)
+    engine.cfg = engine.cfg._replace(use_gps=True, gps_dist_thres=2.0, gps_noise_floor=0.25,
+                                     odom_trans_sqrt_info=50.0, odom_rot_sqrt_info=1000.0)
+    on, launches = _launch_counts(
+        lambda: run_chunks(engine, feed, dev, chunk, deferred=False, fixes=fixes))
+    poses = np.stack(engine.realtime_traj)
+    result = {
+        "scans": on["scans"], "chunk": chunk, "fixes": len(fixes),
+        "ate_gps_off_m": ate_off, "ate_gps_on_m": _ate(engine, feed),
+        "gps_factors": int(engine.graph.n_gps), "solves": engine.solve_count,
+        "keyframes": engine.kf.n, "launches": launches, "launches_gps_off": launches_off,
+        "scans_per_s_gps_off": off["scans"] / off["total_s"],
+        "scans_per_s_gps_on": on["scans"] / on["total_s"],
+        "solve_ms_each": 1e3 * on["solve_s"] / max(engine.solve_count, 1),
+        "host_syncs_per_chunk": on["host_reads"] / on["chunks"],
+    }
+    print("  " + json.dumps(result))
+    print(f"  corridor ATE: GPS off {ate_off:.4f} m, GPS on {result['ate_gps_on_m']:.4f} m "
+          f"(accuracy reference, JAX engine on a TPU over 400 scans: 1.8293 / 1.8664 m)")
+    _fail("GPS phase", {
+        "at least 2 GPS factors": result["gps_factors"] >= 2,
+        "at least 1 solve": result["solves"] >= 1,
+        "every pose finite": bool(np.all(np.isfinite(poses))),
+        "ATE with GPS < 2.0 m": result["ate_gps_on_m"] < 2.0,
+        "gather_rows launched": launches["gather_rows"] > 0,
+    })
+    return result
 
 
 def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
@@ -284,79 +681,15 @@ def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     return out
 
 
-def slice_phase(dev, n_scans: int, profile_scans: int = 0):
-    import torch
-
-    from fastliosam_tpu_torch.ops import KERNEL_MODULES
-    from fastliosam_tpu_torch.utils import host_read, host_reads, reset_host_reads
-
-    t0 = time.perf_counter()
-    feed = figure8_feed(n_scans)
-    print(f"  feed: {n_scans} scans x {feed['xyz'].shape[1]} points "
-          f"({time.perf_counter() - t0:.1f} s to make or load)")
-    engine = make_engine(dev)
-    run_engine(engine, feed, dev, min(12, n_scans))  # warm-up: allocator, cuBLAS
-    # the main path's run: every launch count starts at 0 here
-    for mod in KERNEL_MODULES:
-        mod.reset_launches()
-    reset_host_reads()
-    timing = run_engine(engine, feed, dev, n_scans)
-    syncs = host_reads()
-    launches = {mod.KERNEL["name"]: mod.launches for mod in KERNEL_MODULES}
-
-    rt = np.stack(engine.realtime_traj)[:, :3, 3]
-    ate = float(np.sqrt(np.mean(np.sum((rt - feed["gt_p"][:n_scans]) ** 2, axis=1))))
-    matched = host_read(torch.stack(engine.match_counts))
-    n_verify = len(engine.loop_attempts)
-    result = {
-        "scans": n_scans,
-        "scans_per_s": n_scans / timing["total_s"],
-        "keyframes": engine.kf.n,
-        "loops": len(engine.loop_pairs),
-        "verifications": n_verify,
-        "solves": engine.solve_count,
-        "launches": launches,
-        "host_syncs_per_scan": syncs / n_scans,
-        "host_syncs_per_verification": (float(np.mean(timing["verify_syncs"]))
-                                        if timing["verify_syncs"] else None),
-        "nn_launches_per_verification": (float(np.mean(timing["verify_nn"]))
-                                         if timing["verify_nn"] else None),
-        "verify_ms_each": (1e3 * timing["verify_s"] / len(timing["verify_syncs"])
-                           if timing["verify_syncs"] else None),
-        "solve_ms_each": (1e3 * timing["solve_s"] / engine.solve_count
-                          if engine.solve_count else None),
-        "host_s": {k: timing[k] for k in ("total_s", "verify_s", "solve_s")},
-        "ate_m": ate,
-        "min_matched_after_scan2": int(matched[2:].min()),
-    }
-    print("  " + json.dumps(result))
-    poses = np.stack(engine.realtime_traj)
-    checks = {
-        "every pose finite": bool(np.all(np.isfinite(poses)))
-        and bool(np.all(np.isfinite(engine.keyframe_poses()))),
-        "n_matched > 500 after scan 2": result["min_matched_after_scan2"] > 500,
-        "at least one verification": n_verify >= 1,
-        "every kernel launched on the main path": all(v > 0 for v in launches.values()),
-        "ATE < 0.10 m": ate < 0.10,
-    }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError("slice phase failed: " + ", ".join(failed))
-    if profile_scans > 0:  # a separate run: the main path's counts stay as read
-        start = max(0, n_scans - profile_scans)
-        prof_run = run_engine(engine, feed, dev, n_scans, profile_from=start)
-        result["profile"] = profile_summary(
-            prof_run["prof"], prof_run["prof_wall_s"], n_scans - start)
-    return result
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=150, help="figure-8 scans to run")
+    ap.add_argument("--corridor-scans", type=int, default=400, help="GPS corridor scans")
+    ap.add_argument("--chunk", type=int, default=5, help="scans per chunk")
     ap.add_argument("--seed", type=int, default=0, help="seed of the kernel inputs")
     ap.add_argument("--out", type=Path, help="also write the results as JSON here")
     ap.add_argument("--profile-scans", type=int, default=0,
-                    help="trace the last N scans of an extra run with torch.profiler")
+                    help="trace the last N scans of an extra per-scan run with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -367,34 +700,68 @@ def main(argv=None) -> int:
         return 2
     print(card_line())
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     from fastliosam_tpu_torch.ops import KERNEL_MODULES, build
     from fastliosam_tpu_torch.utils import geometry_precision
 
-    t0 = time.perf_counter()
-    build.build(build.sources())
-    print(f"build: {len(build.sources())} source(s) in {time.perf_counter() - t0:.1f} s")
-    for name, log in sorted(build.build_logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}.cu: {line.strip()}")
+    # the feeds take minutes of host time: two worker processes make them
+    # while the kernels build and the kernel phase runs; the pool is shut
+    # down before the engine phases, which are host-bound
+    with ProcessPoolExecutor(max_workers=2,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        fig8_job = pool.submit(figure8_feed, args.scans)
+        corridor_job = pool.submit(corridor_feed, args.corridor_scans)
+
+        t0 = time.perf_counter()
+        build.build(build.sources())
+        print(f"build: {len(build.sources())} source(s) in {time.perf_counter() - t0:.1f} s")
+        for name, log in sorted(build.build_logs.items()):
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}.cu: {line.strip()}")
+
+        with geometry_precision():
+            print("kernel phase:")
+            kernels = {"nearest_neighbors": check_nn(dev, args.seed)}
+            kernels["gather_rows"], gather_cases = check_gather(dev, args.seed)
+            print("experiment entry point (fastliosam_tpu_torch.scripts.exp_gather):")
+            kernels["take_along_axis"], exp_launches, exp_recs = experiment_phase(dev)
+            _fail("experiment entry point", {
+                "take_along_axis launched": exp_launches["take_along_axis"] > 0})
+        t0 = time.perf_counter()
+        fig8 = load_feed(fig8_job.result())
+        corridor = load_feed(corridor_job.result())
+    print(f"feeds: figure-8 {len(fig8['stamps'])} x {fig8['xyz'].shape[1]} points, "
+          f"corridor {len(corridor['stamps'])} scans, {len(corridor['gps_t'])} fixes "
+          f"({time.perf_counter() - t0:.1f} s more to wait for)")
 
     with geometry_precision():
-        print("kernel phase:")
-        kernels = {"nearest_neighbors": check_nn(dev, args.seed)}
-        print("slice phase:")
-        result = slice_phase(dev, args.scans, args.profile_scans)
+        print("per-scan phase (SlamEngine.process):")
+        per_scan = per_scan_phase(dev, fig8, args.profile_scans)
+        print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")
+        chunked = chunked_phase(dev, fig8, args.chunk)
+        print(f"GPS phase (corridor, SlamEngine.process_chunk, chunk {args.chunk}):")
+        gps = gps_phase(dev, corridor, args.chunk)
 
+    paths = {"per_scan": per_scan["launches"], "chunked": chunked["launches"],
+             "gps": gps["launches"], "exp_gather": exp_launches}
     line = {"kernels": []}
     for mod in KERNEL_MODULES:
         rec = dict(mod.KERNEL)
-        rec["launches"] = result["launches"][rec["name"]]
-        rec.update(kernels[rec["name"]])
+        name = rec["name"]
+        rec["launches"] = sum(p[name] for p in paths.values())
+        rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}
+        rec.update(kernels[name])
         line["kernels"].append(rec)
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
-            {"card": card_line(), "kernels": line["kernels"], "slice": result}, indent=1))
+            {"card": card_line(), "kernels": line["kernels"], "gather_cases": gather_cases,
+             "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
+             "total_s": time.perf_counter() - t_start},
+            indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

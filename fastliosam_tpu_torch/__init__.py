@@ -11,24 +11,32 @@ The package imports ``torch`` and numpy only — never ``jax`` and nothing of
 ``device="cpu"``; without CUDA and without an explicit CPU device they
 raise rather than fall back.
 
-Ported so far: the per-scan ``SlamEngine.process`` path with GPS off —
-odometry (IMU propagate, deskew, voxel downsample, iEKF against the
-voxel-surfel hash map), keyframing, loop detection, ICP verification and
-the LM/PCG pose-graph solve. The one TPU (Pallas) kernel on that path, the
-fused nearest-neighbour search, is a hand-written CUDA kernel
-(``csrc/nn.cu``, wrapper ``ops/nn_cuda.py``).
+Ported so far: the engine's per-scan ``process`` path and its chunked
+and deferred paths (``process_chunk``, ``process_chunk_deferred``: no host
+read inside a chunk), with GPS fusion — odometry (IMU propagate, deskew,
+voxel downsample, iEKF against the voxel-surfel hash map), keyframing,
+loop detection, ICP verification, the LM/PCG pose-graph solve, the
+marginal covariance and the WGS84 geodesy. Every TPU (Pallas) kernel in
+the repository has a hand-written CUDA counterpart: the fused
+nearest-neighbour search (``csrc/nn.cu``), the row gather that the
+voxel-hash association reads through (``csrc/gather.cu``) and the 2-D
+``take_along_axis`` of the gather experiments (``csrc/take_along.cu``).
+Float scatter-adds sum in a fixed order, so a run on the card is
+bit-for-bit repeatable, as the JAX package is.
 
 Subpackages:
-  core     SO3/SE3 batched ops, closed-form 3x3 eig, voxel downsample
+  core     SO3/SE3 batched ops, closed-form 3x3 eig, voxel downsample,
+           fixed-order scatter-adds, WGS84/ENU/HK1980 geodesy
   map      voxel-hash surfel map
   odom     IMU propagation, deskew, iterated ESKF, per-scan step
   ops      hand-written CUDA kernels, their plain versions, the nvcc build
   loop     loop candidate search, point-to-point ICP, loop verification
-  pgo      factor-graph storage + LM/PCG solver
-  runtime  the per-scan engine
+  pgo      factor-graph storage + LM/PCG solver + marginal covariance
+  runtime  the engine (per scan, chunked, deferred; GPS)
+  scripts  entry points (``python -m fastliosam_tpu_torch.scripts.exp_gather``)
   sim      synthetic world generator (numpy copy of the JAX package's)
   eval     ATE / RPE metrics (numpy copy)
   convert  JAX-package state (as numpy) -> port tensors
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -11,11 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.geodesy import LocalCartesian
 from .map.voxel_hash import VoxelMap
 from .odom.pipeline import OdomState
 from .odom.state import NavState
 from .pgo.graph import PoseGraph
-from .runtime.engine import KeyframeStore
+from .runtime.engine import KeyframeStore, SlamEngine
 from .utils.device import resolve_device
 
 
@@ -70,3 +71,33 @@ def keyframes_from_numpy(kf, device=None) -> KeyframeStore:
 
     return KeyframeStore(clouds=t("clouds"), masks=t("masks"),
                          raw_poses=t("raw_poses"), stamps=t("stamps"), n=int(f["n"]))
+
+
+def local_cartesian_from_numpy(lc, device=None) -> LocalCartesian:
+    """A LocalCartesian from ``origin_ecef`` and ``rot`` (float32)."""
+    return _tensors(LocalCartesian, lc, device)
+
+
+_GPS_HOST_FIELDS = ("gps_slam_offset", "last_gps_factor_pos", "traj_len", "_n_gps_host",
+                    "_cov6", "_cov_solved_kf", "_cov_solved_p", "_cov_solved_trajlen")
+
+
+def copy_gps_state(src, engine: SlamEngine) -> SlamEngine:
+    """Put the GPS state of ``src`` (a JAX engine, or anything with the same
+    attributes, arrays as numpy) into the port's ``engine``: the ENU
+    anchor, the warmup buffer, the fusion queue, the last factor position,
+    the path length and the pose-covariance gate's solve record. Returns
+    ``engine``."""
+    anchor = src.gps_anchor
+    engine.gps_anchor = None if anchor is None else local_cartesian_from_numpy(
+        {"origin_ecef": np.asarray(anchor.origin_ecef), "rot": np.asarray(anchor.rot)},
+        device="cpu")
+    engine._gps_warmup = None if src._gps_warmup is None else [
+        (ts, np.asarray(enu), np.asarray(noise)) for ts, enu, noise in src._gps_warmup]
+    engine.gps_queue = [(ts, np.asarray(enu), np.asarray(noise))
+                        for ts, enu, noise in src.gps_queue]
+    for name in _GPS_HOST_FIELDS:
+        val = getattr(src, name)
+        setattr(engine, name, None if val is None else (
+            np.array(val) if isinstance(val, np.ndarray) or hasattr(val, "shape") else val))
+    return engine

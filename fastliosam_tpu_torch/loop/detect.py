@@ -9,15 +9,19 @@ def fetch_closest_keyframe_idx(
     positions,  # (K, 3) keyframe translations (corrected)
     stamps,  # (K,) keyframe timestamps (s)
     kf_valid,  # (K,) bool
-    query_idx,  # int
+    query_idx,  # int, or a device integer scalar (read without a sync)
     radius: float,
     time_gap: float,
 ):
     """Nearest keyframe within ``radius`` whose stamp differs from the
     query's by more than ``time_gap``. Returns ``(idx, found)`` as device
     scalars; idx == -1 when no candidate qualifies."""
-    qpos = positions[query_idx]
-    qstamp = stamps[query_idx]
+    if isinstance(query_idx, torch.Tensor):
+        # a 1-element index: indexing with a 0-dim tensor would read it back
+        q = query_idx.to(torch.int64).reshape(1)
+        qpos, qstamp = positions[q][0], stamps[q][0]
+    else:
+        qpos, qstamp = positions[query_idx], stamps[query_idx]
     d = torch.linalg.vector_norm(positions - qpos, dim=-1)
     ok = kf_valid & (d < radius) & (torch.abs(qstamp - stamps) > time_gap)
     d_masked = torch.where(ok, d, torch.inf)

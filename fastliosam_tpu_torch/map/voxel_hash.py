@@ -17,6 +17,12 @@ parity tests compare slot tables.
 Every ``mode="drop"`` scatter of the JAX package becomes a write into a
 buffer with one extra row that takes the dropped indices. Functions return
 new tensors and leave the input map untouched, as the JAX functions do.
+
+Every read of a table row on the association path (fingerprint probes,
+the saturation check, the moment and coordinate reads of the plane fits)
+goes through :func:`ops.gather_cuda.gather_rows`, the hand-written CUDA
+row gather on the card; the moment scatter sums duplicates in a fixed
+order (``core/segment.py``), so the map is bit-deterministic run to run.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from ..core import segment
 from ..core.eigh3 import smallest_eigvec3
+from ..ops.gather_cuda import gather_rows
 from ..utils.device import resolve_device
 
 _P1, _P2, _P3 = 73856093, 19349669, 83492791
@@ -161,7 +168,7 @@ def _find_slots(m: VoxelMap, cfg: VoxelMapConfig, coords, mask, probes=None):
                        device=coords.device)
     for p in range(probes or cfg.query_probes):
         cand = (h0 + p) & (cap - 1)
-        match = m.fp[cand] == want
+        match = gather_rows(m.fp, cand) == want
         slots = torch.where((slots < 0) & match & mask, cand, slots)
     return slots, slots >= 0
 
@@ -191,7 +198,7 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     for _ in range(max(cfg.insert_probes, cfg.claim_probes)):
         cand = (h0 + poff) & (cap - 1)
         unassigned = (slots < 0) & mask
-        cur = fp[cand]
+        cur = gather_rows(fp, cand)
         slots = torch.where(unassigned & (cur == want), cand, slots)
         tryclaim = unassigned & (cur == 0)
         claim = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
@@ -200,7 +207,7 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
         # empty slots hold fp == 0, so adding writes exactly the winner's word
         fp.index_add_(0, cand, want * won.to(torch.int32))
         won_slot = torch.where(won, cand, won_slot)
-        cur2 = fp[cand]
+        cur2 = gather_rows(fp, cand)
         slots = torch.where((slots < 0) & mask & (cur2 == want), cand, slots)
         poff = torch.where(
             (slots < 0) & mask & (cur2 != 0) & (cur2 != want), poff + 1, poff
@@ -214,7 +221,7 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     sl = torch.where(assigned, slots, cap)
 
     # moment saturation: stop accumulating once a voxel is very full
-    room = m.moments[torch.clamp(sl, 0, cap - 1), 0] < cfg.max_points_per_voxel
+    room = gather_rows(m.moments, sl)[:, 0] < cfg.max_points_per_voxel
     w = (assigned & room).to(torch.float32)
     rel = xyz - _voxel_center(coords, cfg.voxel_size)
     upd = torch.cat([torch.ones_like(w)[:, None], rel, _outer6(rel)], dim=-1) * w[:, None]
@@ -239,8 +246,7 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
 
 def _fit_planes(m: VoxelMap, cfg: VoxelMapConfig, slots):
     """Fit planes from the moments stored at ``slots`` (clipped gather)."""
-    sl = torch.clamp(slots, 0, cfg.capacity - 1)
-    mom = m.moments[sl]
+    mom = gather_rows(m.moments, slots)
     c = mom[:, 0]
     safe_c = torch.clamp(c, min=1.0)
     mean_rel = mom[:, 1:4] / safe_c[:, None]
@@ -248,7 +254,7 @@ def _fit_planes(m: VoxelMap, cfg: VoxelMapConfig, slots):
         mean_rel[:, :, None] * mean_rel[:, None, :]
     )
     normal, lam = smallest_eigvec3(cov)
-    center = _voxel_center(m.coords[sl], cfg.voxel_size)
+    center = _voxel_center(gather_rows(m.coords, slots), cfg.voxel_size)
     mean_world = center + mean_rel
     d = -torch.sum(normal * mean_world, dim=-1)
     valid = (c >= cfg.min_points) & (lam[..., 0] < cfg.plane_var_thresh)
@@ -300,8 +306,7 @@ def _merged_fit(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, coords0, pools):
     tot_o = torch.zeros((n, 3, 3), dtype=torch.float32, device=dev)
     for coords in pools:
         slots, found = _find_slots(m, cfg, coords, mask)
-        sl = torch.clamp(slots, 0, cfg.capacity - 1)
-        mom = m.moments[sl] * found.to(torch.float32)[:, None]  # 1 gather
+        mom = gather_rows(m.moments, slots, valid=found)  # 1 gather, 0 where not found
         ci = mom[:, 0]
         si = mom[:, 1:4]
         oi = _unpack_sym(mom[:, 4:10])

@@ -6,9 +6,13 @@ frame, takes per-point planes from the voxel-surfel map, and solves the
 MAP system built from the (N, 6) residual Jacobian's Gram matrix, with the
 ``rvar`` heteroscedastic weights and the degeneracy-aware remap of the
 translation block. The adaptive re-association gate is a ``lax.cond`` in
-JAX; here it is a host branch on one counted device read per gated
-iteration. Linear algebra uses the ``*_ex`` forms, which skip the error
-check that would otherwise sync with the device.
+JAX. Here it is either a host branch on one counted device read per gated
+iteration (the per-scan path), or, with ``gate_on_device=True`` (the
+chunked path, which reads nothing back inside a chunk), a device-side
+select between a fresh association, always computed, and the previous
+one: the same result for one more association pass per gated iteration
+that the gate would have skipped. Linear algebra uses the ``*_ex`` forms,
+which skip the error check that would otherwise sync with the device.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ def iekf_update(
     vmap: vh.VoxelMap,
     map_cfg: vh.VoxelMapConfig,
     cfg: OdomConfig,
+    gate_on_device: bool = False,
 ):
     """Iterated MAP update. Returns ``(state, n_matched)``."""
     dev = pts_body.device
@@ -67,10 +72,19 @@ def iekf_update(
         q_b = p_l @ x.R_ext.T + x.t_ext if cfg.extrinsic_est_en else pts_body
         if 0 < it <= cfg.requery_iters:
             # adaptive: re-associate only when the previous step moved far
-            # enough to invalidate the association (one host read)
-            if cfg.requery_thresh <= 0.0 or bool(
-                host_read(dp_last > cfg.requery_thresh)
-            ):
+            # enough to invalidate the association
+            if cfg.requery_thresh <= 0.0:
+                plane_n, plane_d, assoc, rvar = _query_planes(
+                    x, q_b, mask, vmap, map_cfg, cfg
+                )
+            elif gate_on_device:
+                fresh = _query_planes(x, q_b, mask, vmap, map_cfg, cfg)
+                moved = dp_last > cfg.requery_thresh
+                plane_n, plane_d, assoc, rvar = (
+                    torch.where(moved, a, b)
+                    for a, b in zip(fresh, (plane_n, plane_d, assoc, rvar))
+                )
+            elif bool(host_read(dp_last > cfg.requery_thresh)):  # one host read
                 plane_n, plane_d, assoc, rvar = _query_planes(
                     x, q_b, mask, vmap, map_cfg, cfg
                 )

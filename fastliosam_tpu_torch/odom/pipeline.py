@@ -97,10 +97,13 @@ def odom_step(
     map_cfg: vh.VoxelMapConfig,
     map_ops=None,
     device=None,
+    gate_on_device: bool = False,
 ):
     """Advance odometry by one scan. Returns ``(new_state, aux)`` with the
     world pose (R, p, v), the world-frame downsampled cloud and its mask,
-    and the diagnostics ``n_matched`` / ``n_dropped`` (device scalars)."""
+    and the diagnostics ``n_matched`` / ``n_dropped`` (device scalars).
+    ``gate_on_device`` makes the iEKF re-query gate a device-side select
+    (no host read; see ``odom/iekf.py``)."""
     if map_ops is not None:
         raise NotImplementedError("map_ops (sharded map backends) is not ported yet")
     dev = resolve_device(device)
@@ -131,7 +134,8 @@ def odom_step(
     pts = ds.xyz[:budget]
     msk = ds.mask[:budget]
 
-    nav_upd, n_matched = iekf_update(nav_prop, pts, msk, state.vmap, map_cfg, cfg)
+    nav_upd, n_matched = iekf_update(nav_prop, pts, msk, state.vmap, map_cfg, cfg,
+                                     gate_on_device)
     # IMU-less: velocity from the pose correction, EMA-smoothed
     v_fd = (nav_upd.p - nav0.p) / max(scan_dt, 1e-3)
     v_sm = cfg.cv_vel_alpha * v_fd + (1.0 - cfg.cv_vel_alpha) * nav0.v

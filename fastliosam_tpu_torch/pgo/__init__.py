@@ -9,4 +9,11 @@ from .graph import (  # noqa: F401
     set_pose,
     grow,
 )
-from .solver import solve, graph_cost  # noqa: F401
+from .solver import (  # noqa: F401
+    extrapolate_pose_cov,
+    graph_cost,
+    marginal_covariance,
+    marginal_covariance_dense,
+    rotate_cov_to_world,
+    solve,
+)

@@ -142,11 +142,14 @@ def grow(g: PoseGraph, cfg_new: PoseGraphConfig) -> PoseGraph:
     return PoseGraph(**out)
 
 
-def _append(arr, count, val):
+def _append(arr, count, val, when=None):
     """``arr`` with ``val`` written at row ``count`` when it is in capacity
-    (masked no-op otherwise); returns ``(arr, in_cap)``."""
+    and ``when`` (a device bool, default true) holds — a masked no-op
+    otherwise; returns ``(arr, written)``."""
     cap = arr.shape[0]
     in_cap = count < cap
+    if when is not None:
+        in_cap = in_cap & when
     # a 1-element index tensor: indexing with a 0-dim one reads it back
     c = torch.clamp(count, 0, cap - 1).to(torch.int64).reshape(1)
     if isinstance(val, torch.Tensor):
@@ -157,10 +160,11 @@ def _append(arr, count, val):
     return torch.where(in_cap, upd, arr), in_cap
 
 
-def add_keyframe(g: PoseGraph, pose) -> PoseGraph:
-    """Append a keyframe pose (no-op when at capacity)."""
-    poses, in_cap = _append(g.poses, g.n_kf, pose)
-    kf_valid, _ = _append(g.kf_valid, g.n_kf, True)
+def add_keyframe(g: PoseGraph, pose, when=None) -> PoseGraph:
+    """Append a keyframe pose (no-op when at capacity or where the device
+    bool ``when`` is false)."""
+    poses, in_cap = _append(g.poses, g.n_kf, pose, when)
+    kf_valid, _ = _append(g.kf_valid, g.n_kf, True, when)
     return g._replace(poses=poses, kf_valid=kf_valid,
                       n_kf=g.n_kf + in_cap.to(torch.int32))
 
@@ -171,15 +175,15 @@ def set_pose(g: PoseGraph, idx, pose) -> PoseGraph:
     return g._replace(poses=poses)
 
 
-def add_between(g: PoseGraph, i, j, rel, sqrt_info) -> PoseGraph:
+def add_between(g: PoseGraph, i, j, rel, sqrt_info, when=None) -> PoseGraph:
     f = g.n_bt
-    bt_i, in_cap = _append(g.bt_i, f, i)
+    bt_i, in_cap = _append(g.bt_i, f, i, when)
     return g._replace(
         bt_i=bt_i,
-        bt_j=_append(g.bt_j, f, j)[0],
-        bt_rel=_append(g.bt_rel, f, rel)[0],
-        bt_sqrt_info=_append(g.bt_sqrt_info, f, sqrt_info)[0],
-        bt_valid=_append(g.bt_valid, f, True)[0],
+        bt_j=_append(g.bt_j, f, j, when)[0],
+        bt_rel=_append(g.bt_rel, f, rel, when)[0],
+        bt_sqrt_info=_append(g.bt_sqrt_info, f, sqrt_info, when)[0],
+        bt_valid=_append(g.bt_valid, f, True, when)[0],
         n_bt=f + in_cap.to(torch.int32),
     )
 

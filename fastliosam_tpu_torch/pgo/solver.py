@@ -15,6 +15,7 @@ with the same matvec and preconditioner (the GPS pose-covariance gate).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import se3, segment, so3
@@ -166,14 +167,19 @@ def _linearize(g: PoseGraph, cfg: PoseGraphConfig, prior_pose):
     diag = torch.diagonal(Hd, dim1=-2, dim2=-1)
 
     def matvec(v, lam):
-        """(JᵀWJ + lam·diag(H) + eps·I) v for v (K, 6)."""
-        ub = torch.einsum("fij,fj->fi", Ji, v[bi]) + torch.einsum("fij,fj->fi", Jj, v[bj])
-        ug = torch.einsum("fij,fj->fi", Jg, v[gi])
-        y = scatter(torch.cat([torch.einsum("fij,fi->fj", Ji, ub),
-                               torch.einsum("fij,fi->fj", Jj, ub),
-                               torch.einsum("fij,fi->fj", Jg, ug)]), (6,))
-        y[0] += Jp.T @ (Jp @ v[0])
-        return y + lam * diag * v + 1e-6 * v
+        """(JᵀWJ + lam·diag(H) + eps·I) v for v (K, 6), or for B vectors at
+        once as v (K, B, 6)."""
+        ub = (torch.einsum("fij,f...j->f...i", Ji, v[bi])
+              + torch.einsum("fij,f...j->f...i", Jj, v[bj]))
+        ug = torch.einsum("fij,f...j->f...i", Jg, v[gi])
+        y = scatter(torch.cat([torch.einsum("fij,f...i->f...j", Ji, ub),
+                               torch.einsum("fij,f...i->f...j", Jj, ub),
+                               torch.einsum("fij,f...i->f...j", Jg, ug)]),
+                    tuple(v.shape[1:]))
+        v0 = v[0]
+        y[0] += Jp.T @ (Jp @ v0) if v0.dim() == 1 else (Jp.T @ (Jp @ v0.T)).T
+        d = diag.reshape((K,) + (1,) * (v.dim() - 2) + (6,))
+        return y + lam * d * v + 1e-6 * v
 
     return b, Hd, matvec
 
@@ -289,3 +295,127 @@ def solve(g: PoseGraph, cfg: PoseGraphConfig, prior_pose=None, device=None):
         poses, cost = lm_scan(gw, poses)
         mu = torch.clamp(mu / gnc_div, min=1.0)
     return g._replace(poses=poses), cost
+
+
+@geometry_precision()
+def marginal_covariance_dense(g: PoseGraph, cfg: PoseGraphConfig, idx: int,
+                              prior_pose=None):
+    """Dense-reference marginal covariance: assembles the (6K, 6K) normal
+    matrix and Cholesky-factorizes it. Kept only as the tests' ground
+    truth; the runtime path is :func:`marginal_covariance`."""
+    if prior_pose is None:
+        prior_pose = g.poses[0]
+    K = g.poses.shape[0]
+    dev = g.poses.device
+    H, _ = _assemble_dense(g, cfg, prior_pose)
+    Hfull = H.transpose(1, 2).reshape(K * 6, K * 6)
+    invalid = torch.repeat_interleave(~g.kf_valid, 6).to(torch.float32)
+    Hfull = Hfull + torch.diag(invalid + 1e-6)
+    L = torch.linalg.cholesky_ex(Hfull).L
+    cols = torch.arange(6, device=dev)
+    E = torch.zeros((K * 6, 6), dtype=torch.float32, device=dev)
+    E[idx * 6 + cols, cols] = 1.0
+    y = torch.linalg.solve_triangular(L, E, upper=False)
+    X = torch.linalg.solve_triangular(L.T, y, upper=True)
+    return X[idx * 6: idx * 6 + 6]
+
+
+@geometry_precision()
+def marginal_covariance(g: PoseGraph, cfg: PoseGraphConfig, idx: int,
+                        prior_pose=None):
+    """6×6 marginal covariance block of keyframe ``idx`` at the current
+    linearization (the reference's ``ISAM2::marginalCovariance`` read),
+    tangent order [trans, rot].
+
+    Matrix-free: the six columns of H⁻¹ that belong to keyframe ``idx``
+    are solved together, as one batched block-Jacobi PCG of
+    ``cfg.marginal_pcg_iters`` trips over the LM stage's matvec (the JAX
+    package vmaps six CGs). Invalid keyframe blocks are decoupled with a
+    unit diagonal so the system stays SPD. Runs on the device with no host
+    read."""
+    if prior_pose is None:
+        prior_pose = g.poses[0]
+    K = g.poses.shape[0]
+    dev = g.poses.device
+    _, Hd, matvec = _linearize(g, cfg, prior_pose)
+    invalid = (~g.kf_valid).to(torch.float32)
+
+    def mv(v):  # v (K, 6 columns, 6): H v + decoupling of invalid blocks
+        return matvec(v, 0.0) + invalid[:, None, None] * v
+
+    Minv = torch.linalg.inv_ex(
+        Hd + torch.diag_embed(invalid[:, None] * torch.ones((1, 6), device=dev) + 1e-6)
+    ).inverse
+
+    def apply_M(r):
+        return torch.einsum("kij,kbj->kbi", Minv, r)
+
+    def dot(a, b):  # one inner product per column
+        return torch.sum(a * b, dim=(0, 2))
+
+    cols = torch.arange(6, device=dev)
+    E = torch.zeros((K, 6, 6), dtype=torch.float32, device=dev)
+    E[idx, cols, cols] = 1.0
+    x = torch.zeros_like(E)
+    r = E
+    z = apply_M(r)
+    p = z
+    rz = dot(r, z)
+    for _ in range(cfg.marginal_pcg_iters):
+        Ap = mv(p)
+        pAp = dot(p, Ap)
+        alpha = torch.where(pAp > _EPS, rz / torch.clamp(pAp, min=_EPS), 0.0)
+        x = x + alpha[None, :, None] * p
+        r = r - alpha[None, :, None] * Ap
+        z = apply_M(r)
+        rz_new = dot(r, z)
+        beta = torch.where(rz > _EPS, rz_new / torch.clamp(rz, min=_EPS), 0.0)
+        p = z + beta[None, :, None] * p
+        rz = rz_new
+    cov = x[idx]  # row c = e_cᵀ H⁻¹ restricted to block idx
+    return 0.5 * (cov + cov.T)
+
+
+def rotate_cov_to_world(cov6, R):
+    """Conjugate a [trans, rot] right-perturbation tangent covariance into
+    the world frame: ``blkdiag(R, R) · cov6 · blkdiag(R, R)ᵀ``. Needed
+    before :func:`extrapolate_pose_cov`, whose displacement is world-frame."""
+    Z = torch.zeros((3, 3), dtype=cov6.dtype, device=cov6.device)
+    J = torch.cat([torch.cat([R, Z], dim=1), torch.cat([Z, R], dim=1)], dim=0)
+    return J @ cov6 @ J.T
+
+
+def extrapolate_pose_cov(cov6, dk, path_len, dxy, trans_var, rot_var):
+    """First-order dead-reckoning extrapolation of the x/y translation
+    marginal variances ``dk`` keyframes past the last solve (host numpy:
+    the engine's GPS gate between solves). ``cov6`` is the world-frame
+    6×6 [trans, rot] marginal at the solve (see
+    :func:`rotate_cov_to_world`), ``path_len`` the odometry path length
+    since, ``dxy`` the (2,) world x/y displacement since. Per axis: the
+    translation random walk, the solve-time yaw variance and (t, yaw)
+    cross-covariance levered by the perpendicular displacement, and the
+    yaw noise injected after the solve; on loop-backs (net displacement ≪
+    path length) the lever is bounded isotropically by the path
+    half-length, blended continuously. Returns the (2,) variances (the
+    JAX package's docstring has the derivation)."""
+    var = np.array([cov6[0, 0], cov6[1, 1]], np.float64)
+    dk = int(dk)
+    if dk <= 0:
+        return var
+    yaw_var = float(cov6[5, 5])
+    cov_x_yaw = float(cov6[0, 5])
+    cov_y_yaw = float(cov6[1, 5])
+    dx, dy = float(dxy[0]), float(dxy[1])
+    norm2 = dx * dx + dy * dy
+    dbar = float(path_len) / dk
+    s2 = (dk - 1) * dk * (2 * dk - 1) / 6.0  # Σ_{m<dk} m²
+    walk = rot_var * dbar * dbar * s2
+    lev2 = 0.25 * path_len * path_len
+    inv_n2 = 1.0 / max(norm2, 1e-12)
+    lev_x = dy * dy * yaw_var - 2.0 * dy * cov_x_yaw + dy * dy * inv_n2 * walk
+    lev_y = dx * dx * yaw_var + 2.0 * dx * cov_y_yaw + dx * dx * inv_n2 * walk
+    iso = 0.5 * lev2 * yaw_var + 0.5 * walk
+    w = min(norm2 / lev2, 1.0) if lev2 > 0.0 else 1.0
+    var[0] += dk * trans_var + w * lev_x + (1.0 - w) * iso
+    var[1] += dk * trans_var + w * lev_y + (1.0 - w) * iso
+    return var

@@ -1,1 +1,1 @@
-from .engine import SlamEngine, EngineConfig, KeyframeStore  # noqa: F401
+from .engine import EngineConfig, GpsFix, KeyframeStore, SlamEngine  # noqa: F401

@@ -196,7 +196,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        trt.SlamEngine(cfg=trt.EngineConfig(use_gps=True), device="cpu")
+        trt.SlamEngine(mesh=object(), device="cpu")
+    map_cfg = tmap.VoxelMapConfig(capacity=1 << 8)
+    scan = todom.Scan(torch.zeros((16, 3)), torch.zeros(16), torch.ones(16, dtype=torch.bool))
+    imu = todom.ImuBatch(torch.full((4,), 1e9), torch.zeros((4, 3)), torch.zeros((4, 3)),
+                         torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="cached"):
+        todom.odom_step(todom.init_odom(map_cfg, device="cpu"), scan, imu, 0.1,
+                        todom.OdomConfig(query_mode="cached", num_ds_points=16), map_cfg,
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="multistart"):
+        tloop.verify_loop(torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool),
+                          torch.eye(4).repeat(2, 1, 1), torch.ones(2, dtype=torch.bool),
+                          1, 0, tloop.LoopConfig(icp_multistart=2), device="cpu")
     with pytest.raises(NotImplementedError):
         tloop.verify_loop(torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool),
                           torch.eye(4).repeat(2, 1, 1), torch.ones(2, dtype=torch.bool),

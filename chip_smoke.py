@@ -37,9 +37,9 @@ Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours on the loop-closing phases 4 and 5, the row gather on 4-6,
 take_along_axis on the experiment entry point). With ``--profile-scans N``
-an extra per-scan run traces its last N scans with ``torch.profiler``; it
-does not touch the launch counts. The line before the last is a JSON
-object describing every kernel; the last line is
+an extra per-scan run, after every phase, traces its last N scans with
+``torch.profiler``; it does not touch the launch counts. The line before
+the last is a JSON object describing every kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -507,7 +507,7 @@ def _fail(phase, checks):
         raise AssertionError(f"{phase} failed: " + ", ".join(failed))
 
 
-def per_scan_phase(dev, feed, profile_scans: int = 0):
+def per_scan_phase(dev, feed):
     import torch
 
     from fastliosam_tpu_torch.utils import host_read, host_reads, reset_host_reads
@@ -558,12 +558,19 @@ def per_scan_phase(dev, feed, profile_scans: int = 0):
         "ATE < 0.10 m": ate < 0.10,
         "replay bit-identical": result["replay_bit_identical"],
     })
-    if profile_scans > 0:  # a separate run: the main path's counts stay as read
-        start = max(0, n_scans - profile_scans)
-        prof_run = run_engine(engine, feed, dev, n_scans, profile_from=start)
-        result["profile"] = profile_summary(
-            prof_run["prof"], prof_run["prof_wall_s"], n_scans - start)
     return result
+
+
+def profile_phase(dev, feed, profile_scans: int):
+    """An extra per-scan run whose last ``profile_scans`` scans run under
+    ``torch.profiler``; it comes after every other phase (tracing slows the
+    host for a while after it ends) and touches no launch count read."""
+    n_scans = len(feed["stamps"])
+    engine = make_engine(dev)
+    run_engine(engine, feed, dev, min(12, n_scans))  # warm-up
+    start = max(0, n_scans - profile_scans)
+    run = run_engine(engine, feed, dev, n_scans, profile_from=start)
+    return profile_summary(run["prof"], run["prof_wall_s"], n_scans - start)
 
 
 def chunked_phase(dev, feed, chunk: int = 5):
@@ -738,11 +745,14 @@ def main(argv=None) -> int:
 
     with geometry_precision():
         print("per-scan phase (SlamEngine.process):")
-        per_scan = per_scan_phase(dev, fig8, args.profile_scans)
+        per_scan = per_scan_phase(dev, fig8)
         print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")
         chunked = chunked_phase(dev, fig8, args.chunk)
         print(f"GPS phase (corridor, SlamEngine.process_chunk, chunk {args.chunk}):")
         gps = gps_phase(dev, corridor, args.chunk)
+        if args.profile_scans > 0:
+            print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
+            per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
 
     paths = {"per_scan": per_scan["launches"], "chunked": chunked["launches"],
              "gps": gps["launches"], "exp_gather": exp_launches}

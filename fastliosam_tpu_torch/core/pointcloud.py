@@ -60,8 +60,10 @@ def voxel_downsample(cloud: Cloud, voxel_size: float) -> Cloud:
     seg = torch.cumsum(is_start, 0) - 1
     w = smask.to(torch.float32)
     # segment sums of [xyz * w, w] in sorted order, in the same fixed order
-    # on the card as on the CPU (no atomics: see core/segment.py)
-    acc = scatter_add(seg, torch.cat([sxyz * w[:, None], w[:, None]], dim=1), n)
+    # on the card as on the CPU (no atomics: see core/segment.py); invalid
+    # lanes form the sentinel segment alone, whose sums are never used
+    acc = scatter_add(seg, torch.cat([sxyz * w[:, None], w[:, None]], dim=1), n,
+                      dead=~smask)
     sums, cnts = acc[:, :3], acc[:, 3]
     centroids = sums / torch.clamp(cnts, min=1.0)[:, None]
     occupied = cnts > 0.0

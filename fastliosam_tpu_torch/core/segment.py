@@ -11,6 +11,11 @@ segment in a fixed order on the card. On the CPU the segments are summed
 sequentially, which is exactly the order ``index_add_`` uses there, so CPU
 results are bit-identical to ``table.index_add_(0, index, values)``.
 
+On the card each segment is summed by one thread, so the cost follows the
+longest segment. Elements whose contribution is discarded (padding lanes
+routed to a drop row) are passed as ``dead``: each becomes a segment of its
+own instead of one long run.
+
 A plan depends only on the indices, so a caller that adds several value
 sets through the same indices (the PGO normal equations and every PCG
 matvec of one linearization) sorts once.
@@ -21,39 +26,43 @@ from typing import NamedTuple
 
 import torch
 
+_DEAD_KEY = 1 << 62  # sort key base of dead elements: after every live index
+
 
 class SegmentPlan(NamedTuple):
     """Stable sort of ``n`` scatter indices into runs of equal index."""
 
     order: torch.Tensor  # (n,) int64: sorted position -> original position
-    sidx: torch.Tensor  # (n,) int64: the indices, sorted
+    sidx: torch.Tensor  # (n,) int64: the indices, in sorted order
     run: torch.Tensor  # (n,) int64: run number of each sorted index
     elem_pos: torch.Tensor  # (n,) int64: slot of each contribution in the data
     head_pos: torch.Tensor  # (n,) int64: slot of each run's head (2n if none)
-    lengths: torch.Tensor  # (n + 1,) int64: run lengths + 1, then the filler
+    lengths: torch.Tensor  # (n + 1,) int64: segment lengths
 
 
-def segment_plan(index) -> SegmentPlan:
-    """Plan the scatter of ``index (n,)``; no host read."""
+def segment_plan(index, dead=None) -> SegmentPlan:
+    """Plan the scatter of ``index (n,)``; no host read. Elements where the
+    bool ``dead`` holds must point at a row that no live element uses and
+    whose result is never read (a drop row): they are summed alone."""
     index = index.to(torch.int64).reshape(-1)
     n = index.shape[0]
     dev = index.device
-    order = torch.argsort(index, stable=True)
-    sidx = index[order]
-    is_start = torch.ones((n,), dtype=torch.bool, device=dev)
-    is_start[1:] = sidx[1:] != sidx[:-1]
-    run = torch.cumsum(is_start.to(torch.int64), 0) - 1
     ar = torch.arange(n, device=dev)
-    # data layout: run r = [head (the table row), its contributions...];
-    # runs follow each other, then one filler segment pads to 2n + 1 rows
+    key = index if dead is None else torch.where(dead.reshape(-1), _DEAD_KEY + ar, index)
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    is_start = torch.ones((n,), dtype=torch.bool, device=dev)
+    is_start[1:] = skey[1:] != skey[:-1]
+    run = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    # data layout: run r = [head (the table row), its contributions...],
+    # runs back to back, then one element for each of the n + 1 - n_runs
+    # empty segments, so every segment has one more element than its run
+    # and the data is exactly 2n + 1 long
     elem_pos = ar + run + 1
     head_pos = torch.where(is_start, ar + run, 2 * n)
-    # integer counts: exact in any order
     counts = torch.zeros((n + 1,), dtype=torch.int64, device=dev).index_add_(
-        0, run, torch.ones_like(run))
-    lengths = counts + (counts > 0).to(torch.int64)
-    lengths[n:] = n - run[n - 1:] if n else 1
-    return SegmentPlan(order, sidx, run, elem_pos, head_pos, lengths)
+        0, run, torch.ones_like(run))  # integer counts: exact in any order
+    return SegmentPlan(order, index[order], run, elem_pos, head_pos, counts + 1)
 
 
 def index_add_(table, plan: SegmentPlan, values):
@@ -66,8 +75,8 @@ def index_add_(table, plan: SegmentPlan, values):
     data = torch.empty((2 * n + 1,) + tuple(table.shape[1:]), dtype=table.dtype,
                        device=table.device)
     data[plan.elem_pos] = values[plan.order].to(table.dtype)
-    # rows without a head (positions 2n) take arbitrary values; the filler
-    # segment that holds them is never read
+    # slots of the empty segments (and position 2n, where the non-heads
+    # write) hold arbitrary values: those segments are never read
     data[plan.head_pos] = table[plan.sidx]
     sums = torch.segment_reduce(data, "sum", lengths=plan.lengths, unsafe=True)
     # every contribution of a run writes its run's sum: duplicates agree
@@ -75,9 +84,9 @@ def index_add_(table, plan: SegmentPlan, values):
     return table
 
 
-def scatter_add(index, values, size: int):
+def scatter_add(index, values, size: int, dead=None):
     """``zeros((size, ...)).index_add_(0, index, values)`` in the fixed
     order of :func:`index_add_`."""
     table = torch.zeros((size,) + tuple(values.shape[1:]), dtype=values.dtype,
                         device=values.device)
-    return index_add_(table, segment_plan(index), values)
+    return index_add_(table, segment_plan(index, dead), values)

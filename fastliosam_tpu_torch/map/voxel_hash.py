@@ -227,8 +227,8 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     upd = torch.cat([torch.ones_like(w)[:, None], rel, _outer6(rel)], dim=-1) * w[:, None]
     # duplicates sum in index order on the CPU and on the card alike (no
     # atomics: core/segment.py), so the map is bit-deterministic as in JAX
-    moments = segment.index_add_(_with_drop_row(m.moments), segment.segment_plan(sl),
-                                 upd)[:cap]
+    plan = segment.segment_plan(sl, dead=~assigned)  # unassigned: the drop row
+    moments = segment.index_add_(_with_drop_row(m.moments), plan, upd)[:cap]
 
     m = m._replace(fp=fp, coords=coords_tbl, moments=moments)
     if refresh_planes:

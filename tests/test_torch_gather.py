@@ -109,3 +109,11 @@ def test_fixed_order_scatter_add_equals_index_add_on_cpu(rng, row_shape):
         assert torch.equal(got, want)
         assert torch.equal(segment.scatter_add(idx, vals, size),
                            torch.zeros_like(table).index_add_(0, idx, vals))
+        # dead lanes go to a drop row (the last) that no live lane uses: the
+        # live rows are index_add_'s, bit for bit
+        dead = T(rng.uniform(size=n) < 0.3)
+        didx = torch.where(dead, size, idx)
+        drop = torch.cat([table, table[:1]])
+        want = drop.clone().index_add_(0, didx, vals)[:size]
+        got = segment.index_add_(drop.clone(), segment.segment_plan(didx, dead), vals)
+        assert torch.equal(got[:size], want)

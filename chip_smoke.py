@@ -12,13 +12,17 @@ Phases, each of which fails the script (non-zero exit) if it fails:
   2. build every CUDA kernel of the package from ``fastliosam_tpu_torch/csrc``
      (one nvcc per source, all started together) into ``build/kernels/``;
   3. kernel phase: each kernel against its plain PyTorch version on the card
-     at the main path's shapes plus ragged ones (the gathers bit for bit),
-     timed with CUDA events around back-to-back device work (fresh indices
-     for the gathers; ``utils/timing.py``) beside the plain
-     version, a one-call PyTorch yardstick that the port never calls, and
+     at the main path's shapes plus ragged ones (the gathers and the
+     association bit for bit; the nearest neighbours also on ties planted
+     across its destination slices, and twice for identical words), timed
+     with CUDA events around back-to-back device work (fresh indices or
+     queries; ``utils/timing.py``) beside the plain version, a one-call
+     PyTorch yardstick that the port never calls (where one exists), and
      its bound; then the gather experiment entry point
      (``fastliosam_tpu_torch.scripts.exp_gather``), the path of
-     ``take_along_axis``;
+     ``take_along_axis``; the association kernel (``merged_moments``) is
+     checked once the figure-8 feed is made, on the engine's own 2^19-slot
+     map after 20 scans;
   4. per-scan phase: ``SlamEngine.process`` over the figure-8 loop feed at
      the full width of the bench's loop-closing configuration (2048 x 16
      rays = 32,768 points per scan, 8192 iEKF points, a 2^19-slot map,
@@ -35,8 +39,12 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      least two GPS factors, a solve, and ATE < 2.0 m.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
-neighbours on the loop-closing phases 4 and 5, the row gather on 4-6,
-take_along_axis on the experiment entry point). With ``--profile-scans N``
+neighbours on the loop-closing phases 4 and 5, the row gather and the
+association on 4-6, take_along_axis on the experiment entry point). Phases
+4-6 report the row gather's and the association's launches per scan, and
+device operations per scan over a window traced with ``torch.profiler``
+(the last 50 scans of the replay in 4 and 5, the last 25 of the GPS-off
+run in 6; ``engine.finish()`` included). With ``--profile-scans N``
 an extra per-scan run, after every phase, traces its last N scans with
 ``torch.profiler``; it does not touch the launch counts. The line before
 the last is a JSON object describing every kernel; the last line is
@@ -82,8 +90,10 @@ def cuda_ms(fn, reps: int) -> float:
 def check_nn(dev, seed: int):
     """The NN kernel against its plain version: 16,384 x 16,384 with ~10%
     of destinations masked (the loop-verification shape), a ragged
-    1000 x 3001 and an all-masked 64 x 256. Returns the record of the main
-    shape."""
+    1000 x 3001 and an all-masked 64 x 256; at the main shape, exact
+    duplicate destinations planted on both sides of every slice boundary
+    must give exactly the lower index, and two launches the same words.
+    Returns the record of the main shape."""
     import torch
 
     from fastliosam_tpu_torch.ops import nn_cuda
@@ -118,8 +128,32 @@ def check_nn(dev, seed: int):
         if main is None:
             main = (src, dst, mask, err)
 
-    src, dst, mask, err = main
+    src, dst, mask, _ = main
     n, m = src.shape[0], dst.shape[0]
+    slices, slice_len = nn_cuda.slice_plan(n, m)
+    tsrc, tdst, tmask = src.clone(), dst.clone(), mask.clone()
+    lower = []
+    for k, b in enumerate(range(slice_len, slices * slice_len, slice_len)):
+        p = torch.from_numpy(rng.normal(size=3).astype(np.float32) * 5).to(dev)
+        tdst[b - 2] = p
+        tdst[b + 1] = p
+        tmask[b - 2] = tmask[b + 1] = True
+        tsrc[3 * k] = p  # on the point: the expansion may round d2 below 0
+        tsrc[3 * k + 1: 3 * k + 3] = p + 1e-3 * torch.from_numpy(
+            rng.normal(size=(2, 3)).astype(np.float32)).to(dev)
+        lower.append((3 * k, b - 2))
+    i1, d1 = nn_cuda.nearest_neighbors_cuda(tsrc, tdst, tmask)
+    i2, d2 = nn_cuda.nearest_neighbors_cuda(tsrc, tdst, tmask)
+    torch.cuda.synchronize()
+    if not (torch.equal(i1, i2) and torch.equal(d1.view(torch.int32), d2.view(torch.int32))):
+        raise AssertionError("nn: two launches on the same inputs differ")
+    got = i1.cpu().numpy()
+    if not all(np.all(got[k: k + 3] == j) for k, j in lower):
+        raise AssertionError("nn: a tie across a slice boundary did not give the lower index")
+    print(f"  nn {n}x{m}: {slices} slices of {slice_len}; {len(lower)} planted ties across "
+          f"slice boundaries give the lower index; two launches bit-identical")
+
+    err = main[3]
     ms = cuda_ms(lambda: nn_cuda.nearest_neighbors_cuda(src, dst, mask), reps=20)
     plain_ms = cuda_ms(lambda: nn_cuda.nearest_neighbors_ref(src, dst, mask), reps=5)
 
@@ -222,6 +256,70 @@ def check_gather(dev, seed: int):
     main = {k: records["moments"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")}
     return main, records
+
+
+def check_assoc(dev, feed, n_map_scans: int = 20, reps: int = 10):
+    """The association kernel against its plain version, bit for bit: the
+    engine's own 2^19-slot map after ``n_map_scans`` figure-8 scans
+    (``SlamEngine.process``, 2 probes), queried with 8192 points of each of
+    its last ``reps`` scans at the engine's poses (world frame, not
+    deskewed), in the merged3 pools (3 per query). Timed over those fresh
+    query sets beside the plain version. Returns the record (the kernels
+    line)."""
+    import torch
+
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import assoc_cuda
+    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    engine = make_engine(dev)
+    run_engine(engine, feed, dev, n_map_scans)
+    m, cfg = engine.odom.vmap, engine.map_cfg
+    rng = np.random.default_rng(n_map_scans)
+    sets, nbytes = [], []
+    fp_np = m.fp.cpu().numpy()
+    for k in range(n_map_scans - reps, n_map_scans):
+        # scan k's points at the engine's pose of scan k, as its iEKF queries them
+        pose = torch.from_numpy(np.asarray(engine.realtime_traj[k], np.float32)).to(dev)
+        keep = np.nonzero(feed["mask"][k])[0]
+        pick = torch.from_numpy(np.sort(rng.choice(keep, 8192, replace=False))).to(dev)
+        xyz = torch.from_numpy(feed["xyz"][k]).to(dev)[pick] @ pose[:3, :3].T + pose[:3, 3]
+        coords0, pools = vh.merged3_pools(xyz, cfg.voxel_size)
+        mask = torch.ones(8192, dtype=torch.bool, device=dev)
+        sets.append((pools, coords0, mask))
+        # HBM bytes: the probed fingerprint sectors and the found rows'
+        # sectors (distinct), the coordinates and mask read, the output
+        h0 = vh._hash(pools, cfg.capacity).to(torch.int64).cpu().numpy().reshape(-1)
+        want = vh._fingerprint(pools).cpu().numpy().reshape(-1)
+        cand = (h0[:, None] + np.arange(cfg.query_probes)) & (cfg.capacity - 1)
+        hit = fp_np[cand] == want[:, None]
+        found = cand[hit.any(1), hit[hit.any(1)].argmax(1)]
+        nbytes.append(sector_bytes(cand.reshape(-1), 1) + sector_bytes(found, 10)
+                      + pools.numel() * 4 + coords0.numel() * 4 + 8192 + 8192 * 13 * 4)
+    args = (m.fp, m.moments)
+    tail = (cfg.voxel_size, cfg.query_probes)
+    found_share = []
+    for pools, coords0, mask in sets:
+        got = assoc_cuda.merged_moments_cuda(*args, pools, coords0, mask, *tail)
+        want = assoc_cuda.merged_moments_ref(*args, pools, coords0, mask, *tail)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("merged_moments: kernel and plain version differ")
+        found_share.append(float((got[:, 0] > 0).float().mean()))
+    ms = device_ms(lambda p, c, k: assoc_cuda.merged_moments_cuda(*args, p, c, k, *tail), sets)
+    plain_ms = device_ms(lambda p, c, k: assoc_cuda.merged_moments_ref(*args, p, c, k, *tail),
+                         sets)
+    bound_ms = float(np.mean(nbytes)) / H100_BYTES_PER_S * 1e3
+    print(f"  merged_moments (2^{cfg.capacity.bit_length() - 1}-slot map after {n_map_scans} "
+          f"figure-8 scans) 8192 x 3 pools x "
+          f"{cfg.query_probes} probes, {reps} query sets: equal, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({np.mean(nbytes):.0f} HBM bytes), "
+          f"voxels found {np.mean(found_share):.1%} of queries; "
+          f"map holds {int((fp_np != 0).sum())} voxels")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "library_note": "no single PyTorch call probes a hash table and merges moments"}
 
 
 def experiment_phase(dev):
@@ -409,6 +507,21 @@ class _Probe:
         return False
 
 
+def _start_profile():
+    """Start ``torch.profiler`` on the device's activity after draining the
+    queue; returns it and the host clock. Only device rows are read, and
+    recording the host's operations too would cost tens of seconds per
+    window (the host's are recorded only in a rehearsal on the CPU)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA if torch.cuda.is_available()
+                               else ProfilerActivity.CPU])
+    prof.__enter__()
+    return prof, time.perf_counter()
+
+
 def run_engine(engine, feed, dev, n_scans: int, profile_from=None):
     """Drive ``engine.process`` over the feed. Returns host times, the
     per-verification host reads and NN launches; with ``profile_from`` the
@@ -424,12 +537,7 @@ def run_engine(engine, feed, dev, n_scans: int, profile_from=None):
         t0 = time.perf_counter()
         for k in range(n_scans):
             if k == profile_from:
-                from torch.profiler import ProfilerActivity, profile
-
-                torch.cuda.synchronize()
-                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                prof.__enter__()
-                t_prof = time.perf_counter()
+                prof, t_prof = _start_profile()
             scan = Scan(g["xyz"][k], g["toff"][k], g["mask"][k])
             imu = ImuBatch(g["imu_t"][k], g["imu_g"][k], g["imu_a"][k], g["imu_m"][k])
             engine.process(scan, imu, float(feed["stamps"][k]), float(feed["scan_dt"]))
@@ -442,14 +550,16 @@ def run_engine(engine, feed, dev, n_scans: int, profile_from=None):
     if prof is not None:
         prof.__exit__(None, None, None)
         timing["prof"], timing["prof_wall_s"] = prof, time.perf_counter() - t_prof
+        timing["prof_scans"] = n_scans - profile_from
     return timing
 
 
-def run_chunks(engine, feed, dev, chunk: int, deferred: bool, fixes=None):
+def run_chunks(engine, feed, dev, chunk: int, deferred: bool, fixes=None, profile_from=None):
     """Drive ``process_chunk`` (or its deferred form) over the feed in
     chunks, as ``bench.py: _run_pipeline`` does, with the GPS fixes of each
     chunk's time span. Returns host time and the host reads inside loop
-    verification, loop resolution and solves."""
+    verification, loop resolution and solves; with ``profile_from`` the
+    chunks from that index on run under ``torch.profiler``."""
     import torch
 
     from fastliosam_tpu_torch.odom import ImuBatch, Scan
@@ -459,10 +569,13 @@ def run_chunks(engine, feed, dev, chunk: int, deferred: bool, fixes=None):
     n = (len(feed["stamps"]) // chunk) * chunk
     dt = float(feed["scan_dt"])
     step = engine.process_chunk_deferred if deferred else engine.process_chunk
+    prof = None
     with _Probe(engine) as probe:
         torch.cuda.synchronize()
         r0, t0 = host_reads(), time.perf_counter()
         for c in range(0, n, chunk):
+            if profile_from is not None and c == profile_from * chunk:
+                prof, t_prof = _start_profile()
             sl = slice(c, c + chunk)
             stamps = feed["stamps"][sl]
             lo, hi = float(stamps[0]) - dt, float(stamps[-1])
@@ -473,9 +586,14 @@ def run_chunks(engine, feed, dev, chunk: int, deferred: bool, fixes=None):
         engine.finish()
         torch.cuda.synchronize()
         total, reads = time.perf_counter() - t0, host_reads() - r0
-    return {"total_s": total, "scans": n, "chunks": n // chunk, "host_reads": reads,
-            "loop_and_solve_reads": sum(probe.reads.values()),
-            "solve_s": probe.s["_solve"], "verify_s": probe.s["_launch_verify"]}
+    out = {"total_s": total, "scans": n, "chunks": n // chunk, "host_reads": reads,
+           "loop_and_solve_reads": sum(probe.reads.values()),
+           "solve_s": probe.s["_solve"], "verify_s": probe.s["_launch_verify"]}
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        out["prof"], out["prof_wall_s"] = prof, time.perf_counter() - t_prof
+        out["prof_scans"] = n - profile_from * chunk
+    return out
 
 
 def _ate(engine, feed) -> float:
@@ -492,6 +610,18 @@ def _launch_counts(fn):
         mod.reset_launches()
     out = fn()
     return out, {mod.KERNEL["name"]: mod.launches for mod in KERNEL_MODULES}
+
+
+def _per_scan(launches, scans) -> dict:
+    """The association's kernels per scan: gather_rows (the insert's table
+    reads) and merged_moments (one per association)."""
+    return {name: launches[name] / scans for name in ("gather_rows", "merged_moments")}
+
+
+def _window_ops(run, top: int = 6) -> float:
+    """Device operations per scan over the profiled window of ``run``."""
+    return profile_summary(run["prof"], run["prof_wall_s"], run["prof_scans"],
+                           top=top)["device_ops_per_scan"]
 
 
 def _replay(engine, first) -> bool:
@@ -544,17 +674,21 @@ def per_scan_phase(dev, feed):
         "min_matched_after_scan2": int(matched[2:].min()),
         "loop_pairs": first[1],
     }
+    result["launches_per_scan"] = _per_scan(launches, n_scans)
     poses = np.stack(engine.realtime_traj)
-    run_engine(engine, feed, dev, n_scans)  # the replay
+    window = min(50, n_scans)
+    # the replay; its last 50 scans are traced (tracing changes no result)
+    replay = run_engine(engine, feed, dev, n_scans, profile_from=n_scans - window)
     result["replay_bit_identical"] = _replay(engine, first)
+    result["device_ops_per_scan"] = _window_ops(replay)
     print("  " + json.dumps(result))
     _fail("per-scan phase", {
         "every pose finite": bool(np.all(np.isfinite(poses)))
         and bool(np.all(np.isfinite(engine.keyframe_poses()))),
         "n_matched > 500 after scan 2": result["min_matched_after_scan2"] > 500,
         "at least one verification": n_verify >= 1,
-        "nearest_neighbors and gather_rows launched": launches["nearest_neighbors"] > 0
-        and launches["gather_rows"] > 0,
+        "nearest_neighbors, gather_rows and merged_moments launched":
+            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments")) > 0,
         "ATE < 0.10 m": ate < 0.10,
         "replay bit-identical": result["replay_bit_identical"],
     })
@@ -591,9 +725,13 @@ def chunked_phase(dev, feed, chunk: int = 5):
         "host_s": {k: run[k] for k in ("total_s", "verify_s", "solve_s")},
         "ate_m": _ate(engine, feed), "loop_pairs": first[1],
     }
+    result["launches_per_scan"] = _per_scan(launches, run["scans"])
     poses = np.stack(engine.realtime_traj)
-    run_chunks(engine, feed, dev, chunk, deferred=True)  # the replay
+    # the replay; its last 10 chunks are traced (tracing changes no result)
+    replay = run_chunks(engine, feed, dev, chunk, deferred=True,
+                        profile_from=max(0, run["chunks"] - 10))
     result["replay_bit_identical"] = _replay(engine, first)
+    result["device_ops_per_scan"] = _window_ops(replay)
     print("  " + json.dumps(result))
     _fail("chunked phase", {
         "every pose finite": bool(np.all(np.isfinite(poses))),
@@ -601,8 +739,8 @@ def chunked_phase(dev, feed, chunk: int = 5):
         "at least one loop": result["loops"] >= 1,
         "<= 1 host read per chunk for odometry + keyframing":
             result["odom_keyframe_reads_per_chunk"] <= 1.0,
-        "nearest_neighbors and gather_rows launched": launches["nearest_neighbors"] > 0
-        and launches["gather_rows"] > 0,
+        "nearest_neighbors, gather_rows and merged_moments launched":
+            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments")) > 0,
         "replay bit-identical": result["replay_bit_identical"],
     })
     return result
@@ -628,8 +766,11 @@ def gps_phase(dev, feed, chunk: int = 5):
     """The bench's corridor (``bench.py: bench_gps_corridor``): process_chunk
     with GPS off, then on with the bench's GPS configuration."""
     engine = make_engine(dev, max_kf=256, max_between=512, max_gps=256, chunk=chunk)
+    n_chunks = len(feed["stamps"]) // chunk
+    # the GPS-off run's last 5 chunks are traced (no solve runs there)
     off, launches_off = _launch_counts(
-        lambda: run_chunks(engine, feed, dev, chunk, deferred=False))
+        lambda: run_chunks(engine, feed, dev, chunk, deferred=False,
+                           profile_from=max(0, n_chunks - 5)))
     ate_off = _ate(engine, feed)
     fixes = gps_fixes(feed)
     engine.pgo_cfg = engine.pgo_cfg._replace(gps_huber_delta=2.0)
@@ -647,6 +788,9 @@ def gps_phase(dev, feed, chunk: int = 5):
         "scans_per_s_gps_on": on["scans"] / on["total_s"],
         "solve_ms_each": 1e3 * on["solve_s"] / max(engine.solve_count, 1),
         "host_syncs_per_chunk": on["host_reads"] / on["chunks"],
+        "launches_per_scan": _per_scan(launches, on["scans"]),
+        "launches_per_scan_gps_off": _per_scan(launches_off, off["scans"]),
+        "device_ops_per_scan_gps_off": _window_ops(off),
     }
     print("  " + json.dumps(result))
     print(f"  corridor ATE: GPS off {ate_off:.4f} m, GPS on {result['ate_gps_on_m']:.4f} m "
@@ -656,7 +800,8 @@ def gps_phase(dev, feed, chunk: int = 5):
         "at least 1 solve": result["solves"] >= 1,
         "every pose finite": bool(np.all(np.isfinite(poses))),
         "ATE with GPS < 2.0 m": result["ate_gps_on_m"] < 2.0,
-        "gather_rows launched": launches["gather_rows"] > 0,
+        "gather_rows and merged_moments launched":
+            launches["gather_rows"] > 0 and launches["merged_moments"] > 0,
     })
     return result
 
@@ -744,6 +889,8 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s more to wait for)")
 
     with geometry_precision():
+        print("kernel phase, association (on the figure-8 map):")
+        kernels["merged_moments"] = check_assoc(dev, fig8)
         print("per-scan phase (SlamEngine.process):")
         per_scan = per_scan_phase(dev, fig8)
         print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")

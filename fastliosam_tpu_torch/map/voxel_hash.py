@@ -6,23 +6,22 @@ surfel statistics ``[count, Σ(p-c) (3), Σ outer (6)]`` relative to its
 centre in one fused ``(C, 10)`` moment tensor. Identity checks use one
 int32 fingerprint word per slot (odd, so 0 means empty).
 
-The hash and the fingerprint are uint32 arithmetic in the JAX package:
-coordinates wrap into uint32, products wrap modulo 2^32 and ``>>`` is a
-logical shift. Torch's uint32 support is thin and ``>>`` on int32 is
-arithmetic, so the port emulates them in int64 masked with 0xFFFFFFFF,
-splitting each multiplier into 16-bit halves so no product leaves int64.
-Both words match the JAX package bit for bit, which is what lets the
-parity tests compare slot tables.
+The slot hash and the fingerprint (``core/voxel.py``) are uint32
+arithmetic emulated in int64; both match the JAX package bit for bit,
+which is what lets the parity tests compare slot tables.
 
 Every ``mode="drop"`` scatter of the JAX package becomes a write into a
 buffer with one extra row that takes the dropped indices. Functions return
 new tensors and leave the input map untouched, as the JAX functions do.
 
-Every read of a table row on the association path (fingerprint probes,
-the saturation check, the moment and coordinate reads of the plane fits)
-goes through :func:`ops.gather_cuda.gather_rows`, the hand-written CUDA
-row gather on the card; the moment scatter sums duplicates in a fixed
-order (``core/segment.py``), so the map is bit-deterministic run to run.
+The merged plane queries make one call of
+:func:`ops.assoc_cuda.merged_moments` per association: probe, moment read
+and re-referenced sums, one hand-written CUDA launch on the card. The
+insert's table reads (fingerprint probes, the saturation check, the
+moment and coordinate reads of the plane fits) go through
+:func:`ops.gather_cuda.gather_rows`, the CUDA row gather; the moment
+scatter sums duplicates in a fixed order (``core/segment.py``), so the map
+is bit-deterministic run to run.
 """
 from __future__ import annotations
 
@@ -33,30 +32,12 @@ import torch
 
 from ..core import segment
 from ..core.eigh3 import smallest_eigvec3
+from ..core.voxel import fingerprint as _fingerprint
+from ..core.voxel import hash_slot as _hash
+from ..core.voxel import voxel_center as _voxel_center
+from ..ops.assoc_cuda import merged_moments
 from ..ops.gather_cuda import gather_rows
 from ..utils.device import resolve_device
-
-_P1, _P2, _P3 = 73856093, 19349669, 83492791
-_Q1, _Q2, _Q3 = 2654435761, 805459861, 3674653429  # fingerprint hash
-_MASK32 = 0xFFFFFFFF
-
-
-def _mul32(a, k: int):
-    """``(a * k) mod 2^32`` for int64 ``a`` in [0, 2^32) and a uint32
-    constant ``k``, without int64 overflow."""
-    lo, hi = k & 0xFFFF, k >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
-
-
-def _mix32(h):
-    """Avalanche finalizer (murmur3 fmix variant) on uint32 values held in
-    int64."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x7FEB352D)
-    h = h ^ (h >> 15)
-    h = _mul32(h, 0x846CA68B)
-    h = h ^ (h >> 16)
-    return h
 
 
 class VoxelMapConfig(NamedTuple):
@@ -105,34 +86,6 @@ def _voxel_coords(xyz, voxel_size):
     return torch.floor(xyz * (1.0 / voxel_size)).to(torch.int32)
 
 
-def _as_u32(coords):
-    return coords.to(torch.int64) & _MASK32
-
-
-def _hash(coords, capacity):
-    """Slot index (int32) of int32 voxel coords (..., 3)."""
-    c = _as_u32(coords)
-    h = (
-        _mul32(c[..., 0], _P1) + _mul32(c[..., 1], _P2) + _mul32(c[..., 2], _P3)
-    ) & _MASK32
-    return (_mix32(h) & (capacity - 1)).to(torch.int32)
-
-
-def _fingerprint(coords):
-    """Odd (hence nonzero) int32 identity word per voxel coordinate: the
-    uint32 hash bit-cast to int32."""
-    c = _as_u32(coords)
-    h = (
-        _mul32(c[..., 0], _Q1) + _mul32(c[..., 1], _Q2) + _mul32(c[..., 2], _Q3)
-    ) & _MASK32
-    h = _mix32(h) | 1
-    return torch.where(h >= (1 << 31), h - (1 << 32), h).to(torch.int32)
-
-
-def _voxel_center(coords, voxel_size):
-    return (coords.to(torch.float32) + 0.5) * voxel_size
-
-
 def _outer6(v):
     """Upper-triangle outer product packing (..., 3) -> (..., 6)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -156,21 +109,6 @@ def _with_drop_row(t):
     """``t`` plus one zero row at index ``len(t)`` that takes the writes the
     JAX package drops (``mode="drop"`` with an out-of-bounds index)."""
     return torch.cat([t, torch.zeros_like(t[:1])])
-
-
-def _find_slots(m: VoxelMap, cfg: VoxelMapConfig, coords, mask, probes=None):
-    """Probe for existing slots: one fingerprint gather per round. Returns
-    ``(slots int64, found)``; slots is -1 where not found."""
-    cap = cfg.capacity
-    h0 = _hash(coords, cap).to(torch.int64)
-    want = _fingerprint(coords)
-    slots = torch.full(coords.shape[:-1], -1, dtype=torch.int64,
-                       device=coords.device)
-    for p in range(probes or cfg.query_probes):
-        cand = (h0 + p) & (cap - 1)
-        match = gather_rows(m.fp, cand) == want
-        slots = torch.where((slots < 0) & match & mask, cand, slots)
-    return slots, slots >= 0
 
 
 def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
@@ -295,33 +233,14 @@ _STENCIL7 = np.array(
 
 
 def _merged_fit(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, coords0, pools):
-    """Merge the moments of the voxels ``pools`` (each (N, 3) coords),
+    """Merge the moments of the voxels ``pools`` ((P, N, 3) coords),
     re-referenced to the query voxel's centre, and fit one plane per query.
     Returns ``(normal, d, valid, rvar)``."""
     n = xyz.shape[0]
-    dev = xyz.device
     c0 = _voxel_center(coords0, cfg.voxel_size)
-    tot_c = torch.zeros((n,), dtype=torch.float32, device=dev)
-    tot_s = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    tot_o = torch.zeros((n, 3, 3), dtype=torch.float32, device=dev)
-    for coords in pools:
-        slots, found = _find_slots(m, cfg, coords, mask)
-        mom = gather_rows(m.moments, slots, valid=found)  # 1 gather, 0 where not found
-        ci = mom[:, 0]
-        si = mom[:, 1:4]
-        oi = _unpack_sym(mom[:, 4:10])
-        # shift moments from neighbour centre c_i to the query voxel centre
-        dc = _voxel_center(coords, cfg.voxel_size) - c0
-        tot_c = tot_c + ci
-        tot_s = tot_s + si + ci[:, None] * dc
-        cross = si[:, :, None] * dc[:, None, :]
-        tot_o = (
-            tot_o
-            + oi
-            + cross
-            + cross.transpose(-1, -2)
-            + ci[:, None, None] * (dc[:, :, None] * dc[:, None, :])
-        )
+    tot = merged_moments(m.fp, m.moments, pools, coords0, mask, cfg.voxel_size,
+                         cfg.query_probes)
+    tot_c, tot_s, tot_o = tot[:, 0], tot[:, 1:4], tot[:, 4:13].reshape(n, 3, 3)
     safe_c = torch.clamp(tot_c, min=1.0)
     mean = tot_s / safe_c[:, None]
     cov = tot_o / safe_c[:, None, None] - mean[:, :, None] * mean[:, None, :]
@@ -333,23 +252,23 @@ def _merged_fit(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, coords0, pools):
     return normal, d, valid, rvar
 
 
-def query_planes_merged(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
-    """Plane fit from moments merged over the 7-voxel face stencil.
-    Returns ``(normal, d, valid, rvar)``."""
-    coords0 = _voxel_coords(xyz, cfg.voxel_size)
-    pools = [
+def merged_pools(xyz, voxel_size):
+    """``(coords0 (N, 3), pools (7, N, 3))``: each query's voxel and the
+    7-voxel face stencil around it, the pools of :func:`query_planes_merged`."""
+    coords0 = _voxel_coords(xyz, voxel_size)
+    pools = torch.stack([
         torch.stack([coords0[:, i] + int(off[i]) for i in range(3)], dim=-1)
         for off in _STENCIL7
-    ]
-    return _merged_fit(m, cfg, xyz, mask, coords0, pools)
+    ])
+    return coords0, pools
 
 
-def query_planes_merged3(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
-    """Plane fit from the query's own voxel merged with its two dominant
-    face neighbours (one per largest in-voxel offset axis)."""
-    coords0 = _voxel_coords(xyz, cfg.voxel_size)
-    c0 = _voxel_center(coords0, cfg.voxel_size)
-    off = xyz - c0
+def merged3_pools(xyz, voxel_size):
+    """``(coords0 (N, 3), pools (3, N, 3))``: each query's voxel and its two
+    dominant face neighbours (one per largest in-voxel offset axis), the
+    pools of :func:`query_planes_merged3`."""
+    coords0 = _voxel_coords(xyz, voxel_size)
+    off = xyz - _voxel_center(coords0, voxel_size)
     aoff = torch.abs(off)
     axes = torch.arange(3, device=xyz.device)
     ax1 = torch.argmax(aoff, dim=-1)
@@ -360,7 +279,19 @@ def query_planes_merged3(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
     sgn = torch.sign(off)
     nb1 = coords0 + (sgn * oh1).to(torch.int32)
     nb2 = coords0 + (sgn * oh2).to(torch.int32)
-    return _merged_fit(m, cfg, xyz, mask, coords0, (coords0, nb1, nb2))
+    return coords0, torch.stack((coords0, nb1, nb2))
+
+
+def query_planes_merged(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
+    """Plane fit from moments merged over the 7-voxel face stencil.
+    Returns ``(normal, d, valid, rvar)``."""
+    return _merged_fit(m, cfg, xyz, mask, *merged_pools(xyz, cfg.voxel_size))
+
+
+def query_planes_merged3(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
+    """Plane fit from the query's own voxel merged with its two dominant
+    face neighbours. Returns ``(normal, d, valid, rvar)``."""
+    return _merged_fit(m, cfg, xyz, mask, *merged3_pools(xyz, cfg.voxel_size))
 
 
 def evict_far(m: VoxelMap, cfg: VoxelMapConfig, center_xyz, det_range):

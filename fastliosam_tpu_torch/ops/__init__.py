@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version."""
-from . import gather_cuda, nn_cuda, take_along_cuda  # noqa: F401
+from . import assoc_cuda, gather_cuda, nn_cuda, take_along_cuda  # noqa: F401
+from .assoc_cuda import merged_moments, merged_moments_cuda, merged_moments_ref  # noqa: F401
 from .gather_cuda import gather_rows, gather_rows_cuda, gather_rows_ref  # noqa: F401
 from .nn_cuda import (  # noqa: F401
     nearest_neighbors,
@@ -14,4 +15,4 @@ from .take_along_cuda import (  # noqa: F401
 
 # every kernel module: KERNEL (name, route, source, replaces), launches,
 # reset_launches()
-KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda)
+KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda, assoc_cuda)

@@ -3,9 +3,10 @@ PyTorch version, and the dispatch between them.
 
 Port of the Pallas TPU kernels ``scripts/exp_assoc_kernels.py:
 exp_a_int_indexing`` and ``exp_b_fori_dynamic_slice`` (both compute
-``table[idx]``). On the engine path it is the voxel-hash association's
+``table[idx]``). On the engine path it is the voxel-hash map insert's
 read of the fingerprint, coordinate and moment tables
-(``map/voxel_hash.py``). :func:`gather_rows` launches the kernel for CUDA
+(``map/voxel_hash.py``); the association's reads are fused into
+``ops/assoc_cuda.py``. :func:`gather_rows` launches the kernel for CUDA
 tensors (or raises) and runs the plain version only for tensors on the
 CPU; there is no fallback from one to the other.
 

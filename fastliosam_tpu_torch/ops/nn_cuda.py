@@ -35,9 +35,12 @@ def _lib():
     lib = build.load("nn")
     fn = lib.nn_launch
     if fn.argtypes is None:
+        lib.nn_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.nn_plan.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -48,6 +51,15 @@ def _check_points(name, t):
         raise ValueError(f"{name} must be (N, 3) float32, got {tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def slice_plan(n: int, m: int) -> tuple[int, int]:
+    """``(slices, slice_len)``: how the kernel splits ``m`` destinations for
+    ``n`` sources (slice ``s`` holds indices ``[s * slice_len, (s + 1) *
+    slice_len)``). Needs the built kernel library."""
+    slice_len = ctypes.c_int()
+    slices = _lib().nn_plan(n, m, ctypes.byref(slice_len))
+    return slices, slice_len.value
 
 
 def nearest_neighbors_cuda(src, dst, dst_mask):
@@ -64,24 +76,27 @@ def nearest_neighbors_cuda(src, dst, dst_mask):
     if dev.type != "cuda" or dst.device != dev or dst_mask.device != dev:
         raise ValueError("nearest_neighbors_cuda needs all tensors on one CUDA device")
     n, m = src.shape[0], dst.shape[0]
+    slices, slice_len = slice_plan(n, m)
+    # scratch: the packed destinations and each slice's (d2, idx) per source
+    packed = torch.empty((slices * slice_len, 4), dtype=torch.float32, device=dev)
+    part_d = torch.empty((slices, n), dtype=torch.float32, device=dev)
+    part_i = torch.empty((slices, n), dtype=torch.int32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    fn = _lib().nn_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(src.data_ptr(), n, dst.data_ptr(), dst_mask.data_ptr(), m,
-                 idx.data_ptr(), d2.data_ptr(), stream)
+        err = _lib().nn_launch(src.data_ptr(), n, dst.data_ptr(), dst_mask.data_ptr(), m,
+                               slices, slice_len, packed.data_ptr(), part_d.data_ptr(),
+                               part_i.data_ptr(), idx.data_ptr(), d2.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nn kernel launch failed: cudaError {err}")
     launches += 1
     return idx, d2
 
 
-def nearest_neighbors_ref(src, dst, dst_mask, chunk: int = 2048):
-    """Plain version (mirrors ``fastliosam_tpu/loop/icp.py:
-    nearest_neighbors``): destinations in chunks with a running (min,
-    argmin); ties to the lowest index, masked destinations count as 1e12,
-    padding points sit at 1e6, d2 clamped to >= 0."""
+def _nearest_raw(src, dst, dst_mask, chunk: int = 2048):
+    """The plain version's unclamped ``(idx, d2)``: what the kernel merges
+    across its destination slices before it clamps."""
     n, m = src.shape[0], dst.shape[0]
     dev = src.device
     pad = (-m) % chunk
@@ -100,7 +115,16 @@ def nearest_neighbors_ref(src, dst, dst_mask, chunk: int = 2048):
         better = cmin < best_d2
         best_d2 = torch.where(better, cmin, best_d2)
         best_idx = torch.where(better, carg.to(torch.int32) + d0, best_idx)
-    return best_idx, torch.clamp(best_d2, min=0.0)
+    return best_idx, best_d2
+
+
+def nearest_neighbors_ref(src, dst, dst_mask, chunk: int = 2048):
+    """Plain version (mirrors ``fastliosam_tpu/loop/icp.py:
+    nearest_neighbors``): destinations in chunks with a running (min,
+    argmin); ties to the lowest index, masked destinations count as 1e12,
+    padding points sit at 1e6, d2 clamped to >= 0."""
+    idx, d2 = _nearest_raw(src, dst, dst_mask, chunk)
+    return idx, torch.clamp(d2, min=0.0)
 
 
 def nearest_neighbors(src, dst, dst_mask, chunk: int = 2048):

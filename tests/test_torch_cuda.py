@@ -10,8 +10,12 @@ This file imports neither JAX nor the JAX package, and uses no fixture of
 Tolerances: nearest neighbours, d2 rtol 1e-5 / atol 1e-4 (the expansion of
 O(10) m² values in float32, with the card's and the CPU's summation
 orders), indices equal except at ties, where the two candidates' distances
-agree within 1e-5. The row gather and take_along_axis are copies: equal bit
-for bit (NaN fill included). The replay: two runs equal bit for bit.
+agree within 1e-5; planted exact ties across a slice boundary give exactly
+the lower index, and two launches agree bit for bit. The row gather and
+take_along_axis are copies: equal bit for bit (NaN fill included). The
+association's merged moments: equal bit for bit (the kernel rounds every
+product and sum as the plain version does, in its order). The replay: two
+runs equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -19,7 +23,10 @@ import torch
 
 from fastliosam_tpu_torch.ops import nn_cuda
 
-SIZES = [(300, 2500), (1000, 3001), (17, 5), (256, 2048), (16384, 16384)]
+# ragged sizes are not multiples of the kernel's 512 sources per block, its
+# 256-point tile or its slice length
+SIZES = [(300, 2500), (1000, 3001), (17, 5), (256, 2048), (16384, 16384), (16383, 16001),
+         (513, 257)]
 
 
 @pytest.fixture
@@ -67,6 +74,39 @@ def test_nn_kernel_all_masked(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(16384, 16384), (1000, 3001)])
+def test_nn_kernel_planted_ties_and_repeat(cuda_device, n, m):
+    """An exact duplicate destination on both sides of every slice boundary,
+    sources on and around it: the lower index wins. Two launches give the
+    same words."""
+    src, dst, mask = _inputs(7, n, m)
+    slices, slice_len = nn_cuda.slice_plan(n, m)
+    assert slices > 1
+    rng = np.random.default_rng(8)
+    pairs = []
+    for s in range(1, slices):
+        b = s * slice_len
+        if b + 2 >= m:
+            break
+        p = (rng.normal(size=3) * 4).astype(np.float32)
+        dst[b - 2] = dst[b + 1] = p
+        mask[[b - 2, b + 1]] = True
+        k = 3 * len(pairs)
+        src[k] = p  # on the point: the expansion may round d2 below 0
+        src[k + 1: k + 3] = p + rng.normal(size=(2, 3)).astype(np.float32) * 1e-3
+        pairs.append((k, b - 2))
+    assert pairs
+    s, d, mk = (torch.from_numpy(a).to(cuda_device) for a in (src, dst, mask))
+    idx1, d21 = nn_cuda.nearest_neighbors_cuda(s, d, mk)
+    idx2, d22 = nn_cuda.nearest_neighbors_cuda(s, d, mk)
+    torch.cuda.synchronize()
+    assert torch.equal(idx1, idx2) and torch.equal(d21.view(torch.int32), d22.view(torch.int32))
+    idx = idx1.cpu().numpy()
+    for k, lower in pairs:
+        np.testing.assert_array_equal(idx[k: k + 3], lower)
+
+
+@pytest.mark.cuda
 def test_nn_kernel_rejects_bad_inputs(cuda_device):
     src = torch.zeros((8, 3), device=cuda_device)
     dst = torch.zeros((8, 3), device=cuda_device)
@@ -75,6 +115,12 @@ def test_nn_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         nn_cuda.nearest_neighbors_cuda(src.double(), dst, torch.ones(8, dtype=torch.bool,
                                                                     device=cuda_device))
+    with pytest.raises(ValueError):
+        nn_cuda.nearest_neighbors_cuda(src[:, :2].contiguous(), dst,
+                                       torch.ones(8, dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError):
+        nn_cuda.nearest_neighbors_cuda(src.cpu(), dst, torch.ones(8, dtype=torch.bool,
+                                                                  device=cuda_device))
 
 
 # ---------------------------------------------------------------------------
@@ -204,3 +250,110 @@ def test_insert_downsample_solve_replay_bitwise(cuda_device):
     first, second = run(), run()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the association's merged moments: kernel and plain version bit for bit
+# ---------------------------------------------------------------------------
+from fastliosam_tpu_torch.ops import assoc_cuda  # noqa: E402
+
+
+def _assoc_check(vh, m, cfg, xyz, mask, mode, probes):
+    pools_fn = vh.merged_pools if mode == "merged" else vh.merged3_pools
+    coords0, pools = pools_fn(xyz, cfg.voxel_size)
+    before = assoc_cuda.launches
+    got = assoc_cuda.merged_moments(m.fp, m.moments, pools, coords0, mask, cfg.voxel_size,
+                                    probes)
+    torch.cuda.synchronize()
+    assert assoc_cuda.launches == before + 1
+    want = assoc_cuda.merged_moments_ref(m.fp, m.moments, pools, coords0, mask,
+                                         cfg.voxel_size, probes)
+    assert got.shape == want.shape == (xyz.shape[0], 13)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["merged", "merged3"])
+@pytest.mark.parametrize("probes", [2, 4])
+def test_assoc_kernel_matches_plain_version_collisions(cuda_device, mode, probes):
+    """A 512-slot map filled past its capacity: most voxels sit behind a
+    foreign fingerprint, many queries find nothing."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    rng = np.random.default_rng(probes)
+    cfg = vh.VoxelMapConfig(capacity=1 << 9, voxel_size=0.5, insert_probes=4,
+                            claim_probes=4, query_probes=probes)
+    pts = torch.from_numpy((rng.uniform(-6, 6, size=(6000, 3))).astype(np.float32))
+    m = vh.make_map(cfg, cuda_device)
+    m, dropped = vh.insert(m, cfg, pts.to(cuda_device),
+                           torch.ones(6000, dtype=torch.bool, device=cuda_device))
+    assert int(dropped) > 0  # the table really overflows
+    q = torch.from_numpy(rng.uniform(-7, 7, size=(3001, 3)).astype(np.float32)).to(cuda_device)
+    qmask = torch.from_numpy(rng.uniform(size=3001) > 0.2).to(cuda_device)
+    got = _assoc_check(vh, m, cfg, q, qmask, mode, probes)
+    found = got[:, 0] > 0
+    assert 0 < int(found.sum()) < 3001
+
+
+def _figure8_map(dev, n_scans=20):
+    """A 2^19-slot map after inserting ``n_scans`` figure-8 scans (the sim's
+    loop feed at full width) at their ground-truth poses, and the points of
+    the next scan in the world frame."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+
+    world = PlaneWorld.room(size=60.0, height=10.0, n_boxes=25, seed=11)
+    traj = Trajectory.figure8(scale=12.0, period=12.0, z_amp=0.2)
+    sim = SimConfig(scan_rate=10.0, n_azimuth=2048, n_elev=16, max_range=120.0, seed=11,
+                    time_groups=32)
+    data = simulate_sequence(world, traj, sim, n_scans=n_scans + 1)
+    cfg = vh.VoxelMapConfig(capacity=1 << 19, voxel_size=0.5, insert_probes=2,
+                            claim_probes=2, query_probes=2)
+    m = vh.make_map(cfg, dev)
+    world_pts = []
+    for (pts, _, hit), (R, p) in zip(data["scans"], data["gt"]):
+        xyz = torch.from_numpy((pts @ R.T + p).astype(np.float32)).to(dev)
+        world_pts.append((xyz, torch.from_numpy(hit).to(dev)))
+    for xyz, hit in world_pts[:n_scans]:
+        m, _ = vh.insert(m, cfg, xyz, hit, refresh_planes=False)
+    return vh, m, cfg, world_pts[n_scans]
+
+
+@pytest.mark.cuda
+def test_assoc_kernel_matches_plain_version_figure8_map(cuda_device):
+    vh, m, cfg, (xyz, hit) = _figure8_map(cuda_device)
+    for mode in ("merged3", "merged"):
+        for probes in (2, 4):
+            got = _assoc_check(vh, m, cfg, xyz, hit, mode, probes)
+            assert int((got[:, 0] > 0).sum()) > 0.5 * int(hit.sum())
+
+
+@pytest.mark.cuda
+def test_assoc_kernel_rejects_bad_inputs(cuda_device):
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    cfg = vh.VoxelMapConfig(capacity=1 << 10)
+    m = vh.make_map(cfg, cuda_device)
+    xyz = torch.zeros((16, 3), device=cuda_device)
+    coords0, pools = vh.merged3_pools(xyz, cfg.voxel_size)
+    mask = torch.ones(16, dtype=torch.bool, device=cuda_device)
+    ok = (m.fp, m.moments, pools, coords0, mask, 0.5, 2)
+    bad = [
+        (m.fp.float(),) + ok[1:],  # dtype
+        (m.fp[:1000].contiguous(),) + ok[1:],  # not a power of two
+        (m.fp, m.moments[:, :9].contiguous()) + ok[2:],  # row width
+        ok[:2] + (pools.long(),) + ok[3:],
+        ok[:2] + (pools[..., :2].contiguous(),) + ok[3:],
+        ok[:2] + (torch.cat([pools] * 3),) + ok[3:],  # too many pools
+        ok[:3] + (coords0[:8].contiguous(),) + ok[4:],  # query count
+        ok[:4] + (mask.int(),) + ok[5:],
+        ok[:6] + (9,),  # probes
+        ok[:6] + (0,),
+        (m.fp.cpu(),) + ok[1:],  # device
+        ok[:4] + (mask.cpu(),) + ok[5:],
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            assoc_cuda.merged_moments_cuda(*args)
+    assoc_cuda.merged_moments_cuda(*ok)  # and the good call goes through

@@ -74,3 +74,50 @@ def test_dispatch_runs_plain_version_on_cpu_and_kernel_refuses_cpu(rng):
     assert nn_cuda.launches == before  # the plain version is not a launch
     with pytest.raises(ValueError):
         nn_cuda.nearest_neighbors_cuda(T(src), T(dst), T(mask))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's slice-merge rule (csrc/nn.cu): destinations split into
+# slices, each slice's unclamped (d2, idx) from the plain version, merged
+# lexicographically and then clamped, must give exactly the whole call
+# ---------------------------------------------------------------------------
+def _merge_slices(src, dst, mask, bounds):
+    best_d = torch.full((src.shape[0],), 1.0e12)
+    best_i = torch.zeros((src.shape[0],), dtype=torch.int32)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        idx, d2 = nn_cuda._nearest_raw(src, dst[lo:hi], mask[lo:hi])
+        idx = idx + lo
+        better = (d2 < best_d) | ((d2 == best_d) & (idx < best_i))
+        best_d = torch.where(better, d2, best_d)
+        best_i = torch.where(better, idx, best_i)
+    return best_i, torch.clamp(best_d, min=0.0)
+
+
+@pytest.mark.parametrize("case", ["boundary_tie", "masked_slice", "all_masked", "ragged"])
+def test_slice_merge_equals_whole_call(rng, case):
+    n, m, bounds = {"boundary_tie": (300, 2048, [0, 512, 1024, 1536, 2048]),
+                    "masked_slice": (257, 1500, [0, 512, 1024, 1500]),
+                    "all_masked": (64, 700, [0, 256, 700]),
+                    "ragged": (17, 1001, [0, 333, 334, 900, 1001])}[case]
+    src, dst, mask = _inputs(rng, n, m)
+    if case == "boundary_tie":
+        # one point duplicated exactly on both sides of the 1024 boundary,
+        # and sources sitting on it (d2 of the expansion may round below 0)
+        b = bounds[2]
+        dst[b - 3] = dst[b + 5] = np.float32([0.3, -0.7, 1.1])
+        mask[[b - 3, b + 5]] = True
+        src[:20] = dst[b - 3] + rng.normal(size=(20, 3)).astype(np.float32) * 1e-3
+        src[20] = dst[b - 3]
+    elif case == "masked_slice":
+        mask[bounds[1]:bounds[2]] = False
+    elif case == "all_masked":
+        mask[:] = False
+    s, d, k = T(src), T(dst), T(mask)
+    want_i, want_d = nn_cuda.nearest_neighbors_ref(s, d, k)
+    got_i, got_d = _merge_slices(s, d, k, bounds)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d, want_d)
+    if case == "boundary_tie":
+        assert torch.all(want_i[:21] == bounds[2] - 3)  # the lower index wins
+    if case == "all_masked":
+        assert torch.all(want_i == 0) and torch.all(want_d == 1.0e12)

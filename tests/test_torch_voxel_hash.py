@@ -140,3 +140,141 @@ def test_evict_far_matches_jax(rng):
     assert 0 < int(N(te.fp != 0).sum()) < int(N(tm.fp != 0).sum())
     for a, b in zip(tree_np(te), tree_np(je)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the association's merged moments (ops/assoc_cuda.py): the plain version of
+# the CUDA kernel csrc/assoc.cu, which the kernel is held to bit for bit on
+# the card (tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+from fastliosam_tpu_torch.ops import assoc_cuda  # noqa: E402
+
+
+def _assoc_queries(rng, tm, cfg):
+    """Surfel queries, queries in voxels whose slot sits at the second probe
+    behind a foreign fingerprint, and queries far from any voxel (no slot).
+    Returns ``(xyz, mask, n_second_probe)``."""
+    q, qmask = _surfels(rng, n=800, shift=(0.2, 0.1, 0.0))
+    fp, coords = N(tm.fp), N(tm.coords)
+    occ = np.nonzero(fp != 0)[0]
+    h0 = N(tvh._hash(T(coords[occ]), cfg.capacity)).astype(np.int64)
+    second = occ[occ == ((h0 + 1) & (cfg.capacity - 1))]
+    # the first probe holds another voxel's fingerprint
+    assert np.all(fp[(second - 1) & (cfg.capacity - 1)] != fp[second])
+    centres = (coords[second].astype(np.float32) + 0.5) * cfg.voxel_size
+    inner = centres + rng.uniform(-0.2, 0.2, size=centres.shape) * cfg.voxel_size
+    far = rng.uniform(40.0, 60.0, size=(40, 3))
+    xyz = np.concatenate([q, inner, far]).astype(np.float32)
+    mask = np.concatenate([qmask, np.ones(len(inner) + len(far), bool)])
+    return xyz, mask, len(second)
+
+
+def _jax_totals(jm, cfg, pools, coords0, mask):
+    """JAX's own merge loop (``fastliosam_tpu/map/voxel_hash.py:
+    query_planes_merged``) over the given pools, stopped before the fit:
+    ``(N, 13)`` ``[tot_c, tot_s, tot_o]``."""
+    n = coords0.shape[0]
+    c0 = jvh._voxel_center(coords0, cfg.voxel_size)
+    tot_c = jnp.zeros((n,), jnp.float32)
+    tot_s = jnp.zeros((n, 3), jnp.float32)
+    tot_o = jnp.zeros((n, 3, 3), jnp.float32)
+    for coords in pools:
+        slots, found = jvh._find_slots(jm, cfg, coords, mask)
+        sl = jnp.clip(slots, 0, cfg.capacity - 1)
+        mom = jm.moments[sl] * found.astype(jnp.float32)[:, None]
+        ci, si, oi = mom[:, 0], mom[:, 1:4], jvh._unpack_sym(mom[:, 4:10])
+        dc = jvh._voxel_center(coords, cfg.voxel_size) - c0
+        tot_c = tot_c + ci
+        tot_s = tot_s + si + ci[:, None] * dc
+        cross = si[:, :, None] * dc[:, None, :]
+        tot_o = (tot_o + oi + cross + jnp.swapaxes(cross, -1, -2)
+                 + ci[:, None, None] * (dc[:, :, None] * dc[:, None, :]))
+    return np.concatenate([N(tot_c)[:, None], N(tot_s), N(tot_o).reshape(n, 9)], axis=1)
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+@pytest.mark.parametrize("probes", [2, 4])
+@pytest.mark.parametrize("mode", ["merged", "merged3"])
+def test_merged_moments_match_jax(rng, name, probes, mode):
+    """merged_moments_ref against JAX's merge loop (bit for bit: the same
+    float32 operations in the same order), and the port's query that now
+    calls it against JAX's query (the tolerances of
+    test_query_planes_merged_match_jax)."""
+    cfg = CFGS[name]._replace(query_probes=probes)
+    jm, _, _ = _insert_both(rng, cfg, refresh=False)
+    tm = voxel_map_from_numpy(tree_np(jm), device="cpu")
+    xyz, mask, n_second = _assoc_queries(rng, tm, cfg)
+    assert n_second > 0
+    pools_fn = tvh.merged_pools if mode == "merged" else tvh.merged3_pools
+    coords0, pools = pools_fn(T(xyz), cfg.voxel_size)
+    got = assoc_cuda.merged_moments(tm.fp, tm.moments, pools, coords0, T(mask),
+                                    cfg.voxel_size, probes)  # CPU: plain version
+    want = _jax_totals(jm, cfg, jnp.asarray(N(pools)), jnp.asarray(N(coords0)),
+                       jnp.asarray(mask))
+    np.testing.assert_array_equal(N(got).view(np.int32), want.view(np.int32))
+    far = slice(len(xyz) - 40, None)
+    np.testing.assert_array_equal(N(got)[far], 0.0)  # nothing found out there
+    # the second-probe queries find their own voxel
+    inner = slice(len(xyz) - 40 - n_second, len(xyz) - 40)
+    assert np.all(N(got)[inner, 0] > 0)
+
+    q_fn = "query_planes_merged" if mode == "merged" else "query_planes_merged3"
+    jn, jd, jv, jr = getattr(jvh, q_fn)(jm, cfg, jnp.asarray(xyz), jnp.asarray(mask))
+    tn, td, tv, tr = getattr(tvh, q_fn)(tm, _port_cfg(cfg), T(xyz), T(mask))
+    jv = N(jv)
+    np.testing.assert_array_equal(N(tv), jv)
+    assert jv.sum() > 20  # the tight table drops most points: fewer planes
+    np.testing.assert_allclose(N(tn)[jv], N(jn)[jv], atol=1e-4)
+    np.testing.assert_allclose(N(td)[jv], N(jd)[jv], atol=1e-4)
+    np.testing.assert_allclose(N(tr)[jv], N(jr)[jv], rtol=1e-3, atol=1e-9)
+
+
+def _composed_totals(m, cfg, pools, coords0, mask):
+    """The port's association before merged_moments: per pool, the probe
+    loop of one fingerprint gather per round, one moment gather, and the
+    re-referenced sums as separate tensor operations."""
+    n = coords0.shape[0]
+    cap = cfg.capacity
+    c0 = tvh._voxel_center(coords0, cfg.voxel_size)
+    tot_c = torch.zeros((n,), dtype=torch.float32)
+    tot_s = torch.zeros((n, 3), dtype=torch.float32)
+    tot_o = torch.zeros((n, 3, 3), dtype=torch.float32)
+    for coords in pools:
+        h0 = tvh._hash(coords, cap).to(torch.int64)
+        want = tvh._fingerprint(coords)
+        slots = torch.full((n,), -1, dtype=torch.int64)
+        for p in range(cfg.query_probes):
+            cand = (h0 + p) & (cap - 1)
+            match = tvh.gather_rows(m.fp, cand) == want
+            slots = torch.where((slots < 0) & match & mask, cand, slots)
+        mom = tvh.gather_rows(m.moments, slots, valid=slots >= 0)
+        ci, si, oi = mom[:, 0], mom[:, 1:4], tvh._unpack_sym(mom[:, 4:10])
+        dc = tvh._voxel_center(coords, cfg.voxel_size) - c0
+        tot_c = tot_c + ci
+        tot_s = tot_s + si + ci[:, None] * dc
+        cross = si[:, :, None] * dc[:, None, :]
+        tot_o = (tot_o + oi + cross + cross.transpose(-1, -2)
+                 + ci[:, None, None] * (dc[:, :, None] * dc[:, None, :]))
+    return tot_c, tot_s, tot_o
+
+
+@pytest.mark.parametrize("mode", ["merged", "merged3"])
+def test_merged_moments_equal_previous_composition(rng, mode):
+    """torch.equal: the plain version gives exactly what the association's
+    separate gathers and tensor operations gave, on a seeded map."""
+    cfg = _port_cfg(CFGS["tight"])._replace(query_probes=3)
+    tm = tvh.make_map(cfg, device="cpu")
+    for shift in ((0.0, 0.0, 0.0), (0.7, -0.4, 0.1)):
+        pts, pmask = _surfels(rng, shift=shift)
+        tm, _ = tvh.insert(tm, cfg, T(pts), T(pmask), refresh_planes=False)
+    xyz, mask, _ = _assoc_queries(rng, tm, cfg)
+    pools_fn = tvh.merged_pools if mode == "merged" else tvh.merged3_pools
+    coords0, pools = pools_fn(T(xyz), cfg.voxel_size)
+    got = assoc_cuda.merged_moments_ref(tm.fp, tm.moments, pools, coords0, T(mask),
+                                        cfg.voxel_size, cfg.query_probes)
+    tot_c, tot_s, tot_o = _composed_totals(tm, cfg, pools, coords0, T(mask))
+    n = len(xyz)
+    assert torch.equal(got[:, 0], tot_c)
+    assert torch.equal(got[:, 1:4], tot_s)
+    assert torch.equal(got[:, 4:].reshape(n, 3, 3), tot_o)
+    assert int((tot_c > 0).sum()) > 100

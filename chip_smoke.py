@@ -12,17 +12,21 @@ Phases, each of which fails the script (non-zero exit) if it fails:
   2. build every CUDA kernel of the package from ``fastliosam_tpu_torch/csrc``
      (one nvcc per source, all started together) into ``build/kernels/``;
   3. kernel phase: each kernel against its plain PyTorch version on the card
-     at the main path's shapes plus ragged ones (the gathers and the
-     association bit for bit; the nearest neighbours also on ties planted
-     across its destination slices, and twice for identical words), timed
-     with CUDA events around back-to-back device work (fresh indices or
-     queries; ``utils/timing.py``) beside the plain version, a one-call
-     PyTorch yardstick that the port never calls (where one exists), and
-     its bound; then the gather experiment entry point
-     (``fastliosam_tpu_torch.scripts.exp_gather``), the path of
-     ``take_along_axis``; the association kernel (``merged_moments``) is
-     checked once the figure-8 feed is made, on the engine's own 2^19-slot
-     map after 20 scans;
+     at the main path's shapes plus ragged ones (the gathers, the
+     association and the insert bit for bit; the nearest neighbours also
+     on ties planted across its destination slices, and twice for
+     identical words), timed with CUDA events around back-to-back device
+     work (fresh indices or queries; ``utils/timing.py``) beside the
+     plain version, a one-call PyTorch yardstick that the port never calls
+     (where one exists), and its bound; then the gather experiment entry
+     point (``fastliosam_tpu_torch.scripts.exp_gather``), the path of
+     ``take_along_axis``, with its random-read ceiling probe; the row
+     gather (``gather_rows``), the association kernel (``merged_moments``)
+     and the map insert's kernel (``insert_claim``) are checked once the
+     figure-8 feed is made: the gather on the loop closure's plane-refresh
+     reads of submaps around the engine's keyframes after 30 scans, the
+     other two on the engine's own 2^19-slot map after 20 scans (the
+     insert also on a tight table that drops points and on an evicted map);
   4. per-scan phase: ``SlamEngine.process`` over the figure-8 loop feed at
      the full width of the bench's loop-closing configuration (2048 x 16
      rays = 32,768 points per scan, 8192 iEKF points, a 2^19-slot map,
@@ -39,9 +43,10 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      least two GPS factors, a solve, and ATE < 2.0 m.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
-neighbours on the loop-closing phases 4 and 5, the row gather and the
-association on 4-6, take_along_axis on the experiment entry point). Phases
-4-6 report the row gather's and the association's launches per scan, and
+neighbours and the row gather (the loop closure's plane refresh) on the
+loop-closing phases 4 and 5, the association and the insert on 4-6,
+take_along_axis on the experiment entry point). Phases 4-6 report the
+insert's, the association's and the row gather's launches per scan, and
 device operations per scan over a window traced with ``torch.profiler``
 (the last 50 scans of the replay in 4 and 5, the last 25 of the GPS-off
 run in 6; ``engine.finish()`` included). With ``--profile-scans N``
@@ -192,96 +197,135 @@ def _gather_bytes(idx_np, d, c, valid=None, idx_itemsize=None):
             + (n if valid is not None else 0) + n * d * 4)
 
 
-def check_gather(dev, seed: int):
-    """The row gather against its plain version, bit for bit: the
-    association's reads of a 2^19-slot map — the (C, 10) moments (with and
-    without the found-mask), the (C,) int32 fingerprints, the (C, 3) int32
-    voxel coordinates — with 8192 indices; the (2^19, 16) and (2^14, 16)
-    tables of experiments A and B; a ragged 1000 x 3 case with negative and
-    out-of-range indices. Each is timed over 10 fresh index sets beside the
-    plain version and ``torch.index_select``. Returns the record of the
-    moment read (the kernels line) and every case's record."""
+def check_gather(dev, seed: int, plane_sets):
+    """The row gather against its plain version, bit for bit, at the shapes
+    the main path gives it: the loop closure's plane refresh
+    (``map/voxel_hash.py: _fit_planes`` on the throwaway map of
+    ``loop/closure.py: _dst_surfel_map``), which reads the (2^14, 10)
+    moments and the (2^14, 3) int32 voxel coordinates at the 16,384 int64
+    slots of the submap's insert (``plane_sets``, one set per submap); and
+    a ragged 1000 x 3 case with a found-mask and negative and out-of-range
+    indices. Each is timed over its sets beside the plain version and
+    (unmasked) ``torch.index_select`` (experiments A and B's shapes are
+    timed by the experiment entry point). Returns the record of the moment read (the
+    kernels line) and every case's record."""
     import torch
 
     from fastliosam_tpu_torch.ops import gather_cuda
     from fastliosam_tpu_torch.utils.timing import device_ms
 
-    C, N = 1 << 19, 8192
-    cases = [  # name, table shape, dtype, n, index dtype, masked, out of range
-        ("moments", (C, 10), np.float32, N, np.int64, False, False),
-        ("moments_found_mask", (C, 10), np.float32, N, np.int64, True, False),
-        ("fingerprints", (C,), np.int32, N, np.int64, False, False),
-        ("voxel_coords", (C, 3), np.int32, N, np.int64, False, False),
-        ("exp_A", (C, 16), np.float32, N, np.int32, False, False),
-        ("exp_B", (1 << 14, 16), np.float32, N, np.int32, False, False),
-        ("ragged", (1000, 3), np.int32, 1000, np.int32, True, True),
-    ]
     rng = np.random.default_rng(seed)
+    ragged = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(1000, 3),
+                                           dtype=np.int64).astype(np.int32)).to(dev)
+    cases = {  # name: [(table, idx, valid)] with fresh indices per set
+        "plane_moments": [(mom, sl, None) for mom, _, sl in plane_sets],
+        "plane_coords": [(crd, sl, None) for _, crd, sl in plane_sets],
+        "ragged": [(ragged, torch.from_numpy(rng.integers(-2000, 2000, size=1000)
+                                             .astype(np.int32)).to(dev),
+                    torch.from_numpy(rng.uniform(size=1000) > 0.3).to(dev))
+                   for _ in range(10)],
+    }
     records = {}
-    for name, shape, dtype, n, idx_dtype, masked, oor in cases:
-        c = shape[0]
-        d = shape[1] if len(shape) == 2 else 1
-        if dtype == np.int32:
-            tab = rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int64).astype(np.int32)
-        else:
-            tab = rng.normal(size=shape).astype(np.float32)
-        table = torch.from_numpy(tab).to(dev)
-        lo, hi = (-2 * c, 2 * c) if oor else (0, c)
-        idx_np = [rng.integers(lo, hi, size=n).astype(idx_dtype) for _ in range(10)]
-        val_np = [rng.uniform(size=n) > 0.3 for _ in range(10)] if masked else [None] * 10
-        idx = [torch.from_numpy(a).to(dev) for a in idx_np]
-        val = [None if v is None else torch.from_numpy(v).to(dev) for v in val_np]
-        got = gather_cuda.gather_rows_cuda(table, idx[0], val[0])
-        want = gather_cuda.gather_rows_ref(table, idx[0], val[0])
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not torch.equal(got.view(torch.int32),
-                                                      want.view(torch.int32)):
-            raise AssertionError(f"gather_rows {name}: kernel and plain version differ")
-        sets = list(zip(idx, val))
-        ms = device_ms(lambda i, v: gather_cuda.gather_rows_cuda(table, i, v), sets)
-        plain_ms = device_ms(lambda i, v: gather_cuda.gather_rows_ref(table, i, v), sets)
+    for name, sets in cases.items():
+        for table, idx, val in sets:
+            got = gather_cuda.gather_rows_cuda(table, idx, val)
+            want = gather_cuda.gather_rows_ref(table, idx, val)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                          want.view(torch.int32)):
+                raise AssertionError(f"gather_rows {name}: kernel and plain version differ")
+        ms = device_ms(gather_cuda.gather_rows_cuda, sets)
+        plain_ms = device_ms(gather_cuda.gather_rows_ref, sets)
         library_ms = None
-        if not masked and not oor:  # one library call computes the same function
-            library_ms = device_ms(lambda i: torch.index_select(table, 0, i),
-                                       [(i,) for i in idx])
-        nbytes = _gather_bytes(idx_np[0], d, c, val_np[0])
+        if name != "ragged":
+            # index_select raises on the slot C of unassigned points, so it
+            # reads the slots clamped to C - 1 beforehand: the same rows
+            clamped = [(t, i.clamp(max=t.shape[0] - 1)) for t, i, _ in sets]
+            library_ms = device_ms(lambda t, i: torch.index_select(t, 0, i), clamped)
+        table, idx, val = sets[0]
+        c, d = table.shape[0], (table.shape[1] if table.dim() == 2 else 1)
+        nbytes = float(np.mean([_gather_bytes(i.cpu().numpy(), d, c,
+                                              None if v is None else v.cpu().numpy())
+                                for _, i, v in sets]))
         rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
-               "library_ms": library_ms, "table": list(shape), "n": n, "bytes": nbytes}
+               "library_ms": library_ms, "table": list(table.shape), "n": idx.shape[0],
+               "index": str(idx.dtype), "sets": len(sets), "bytes": nbytes}
         records[name] = rec
         lib = "n/a (masked)" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"  gather_rows {name} {shape} x {n}: equal, kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, index_select {lib}, bound {rec['bound_ms']:.5f} ms "
-              f"({nbytes} HBM bytes)")
-    main = {k: records["moments"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")}
+        print(f"  gather_rows {name} {tuple(table.shape)} x {idx.shape[0]} {idx.dtype}, "
+              f"{len(sets)} sets: equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_select {lib}, bound {rec['bound_ms']:.5f} ms ({nbytes:.0f} HBM bytes)")
+    main = {k: records["plane_moments"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms")}
     return main, records
 
 
-def check_assoc(dev, feed, n_map_scans: int = 20, reps: int = 10):
+def plane_refresh_sets(dev, engine, n_sets: int = 10):
+    """The inputs of the loop closure's plane refresh, as
+    ``loop/closure.py: _dst_surfel_map`` makes them: the submap
+    (``build_submap``) around each of up to ``n_sets`` of the engine's
+    keyframes (from the middle of its store) inserted into a throwaway
+    2^14-slot map; ``(moments (2^14, 10), coords (2^14, 3), sl (16,384,)
+    int64)`` each, the tables after the insert and the slots it gave."""
+    from fastliosam_tpu_torch.loop.closure import build_submap
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import insert_cuda
+
+    lc, kf = engine.loop_cfg, engine.kf
+    cfg = vh.VoxelMapConfig(capacity=1 << 14, voxel_size=lc.aniso_voxel, min_points=5)
+    lo = max(0, (kf.n - n_sets) // 2)
+    out = []
+    for centre in range(lo, min(kf.n, lo + n_sets)):
+        dst, mask = build_submap(kf.clouds, kf.masks, engine.graph.poses,
+                                 engine.graph.kf_valid, centre, lc)
+        dst, mask = dst.contiguous(), mask.contiguous()
+        empty = vh.make_map(cfg, dev)
+        sl = insert_cuda.insert_claim(
+            empty.fp, empty.coords, empty.moments, dst, mask, cfg.voxel_size,
+            max(cfg.insert_probes, cfg.claim_probes), cfg.max_points_per_voxel)[2]
+        m, _ = vh.insert(empty, cfg, dst, mask, refresh_planes=False)
+        out.append((m.moments, m.coords, sl))
+    return out
+
+
+def figure8_map(dev, feed, n_map_scans: int = 20, n_more: int = 10):
+    """The engine's own 2^19-slot map after ``n_map_scans`` figure-8 scans
+    (``SlamEngine.process``, 2 probes), its config, the engine's poses of
+    the first ``n_map_scans + n_more`` scans (a second run from
+    ``reset()``, which replays the first bit for bit) and the plane-refresh
+    inputs of loop-closure submaps around its keyframes then
+    (``plane_refresh_sets``)."""
+    engine = make_engine(dev)
+    run_engine(engine, feed, dev, n_map_scans)
+    m = type(engine.odom.vmap)(*(t.clone() for t in engine.odom.vmap))
+    run_engine(engine, feed, dev, n_map_scans + n_more)
+    return (m, engine.map_cfg, np.stack(engine.realtime_traj).astype(np.float32),
+            plane_refresh_sets(dev, engine))
+
+
+def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     """The association kernel against its plain version, bit for bit: the
     engine's own 2^19-slot map after ``n_map_scans`` figure-8 scans
-    (``SlamEngine.process``, 2 probes), queried with 8192 points of each of
-    its last ``reps`` scans at the engine's poses (world frame, not
-    deskewed), in the merged3 pools (3 per query). Timed over those fresh
-    query sets beside the plain version. Returns the record (the kernels
-    line)."""
+    (``figure8_map``), queried with 8192 points of each of its last
+    ``reps`` scans at the engine's poses (world frame, not deskewed), in the
+    merged3 pools (3 per query). Timed over those fresh query sets beside
+    the plain version. Returns the record (the kernels line)."""
     import torch
 
+    from fastliosam_tpu_torch.core import voxel
     from fastliosam_tpu_torch.map import voxel_hash as vh
     from fastliosam_tpu_torch.ops import assoc_cuda
     from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
     from fastliosam_tpu_torch.utils.timing import device_ms
 
-    engine = make_engine(dev)
-    run_engine(engine, feed, dev, n_map_scans)
-    m, cfg = engine.odom.vmap, engine.map_cfg
+    m, cfg, traj, _ = fig8
     rng = np.random.default_rng(n_map_scans)
     sets, nbytes = [], []
     fp_np = m.fp.cpu().numpy()
     for k in range(n_map_scans - reps, n_map_scans):
         # scan k's points at the engine's pose of scan k, as its iEKF queries them
-        pose = torch.from_numpy(np.asarray(engine.realtime_traj[k], np.float32)).to(dev)
+        pose = torch.from_numpy(traj[k]).to(dev)
         keep = np.nonzero(feed["mask"][k])[0]
         pick = torch.from_numpy(np.sort(rng.choice(keep, 8192, replace=False))).to(dev)
         xyz = torch.from_numpy(feed["xyz"][k]).to(dev)[pick] @ pose[:3, :3].T + pose[:3, 3]
@@ -290,8 +334,8 @@ def check_assoc(dev, feed, n_map_scans: int = 20, reps: int = 10):
         sets.append((pools, coords0, mask))
         # HBM bytes: the probed fingerprint sectors and the found rows'
         # sectors (distinct), the coordinates and mask read, the output
-        h0 = vh._hash(pools, cfg.capacity).to(torch.int64).cpu().numpy().reshape(-1)
-        want = vh._fingerprint(pools).cpu().numpy().reshape(-1)
+        h0 = voxel.hash_slot(pools, cfg.capacity).to(torch.int64).cpu().numpy().reshape(-1)
+        want = voxel.fingerprint(pools).cpu().numpy().reshape(-1)
         cand = (h0[:, None] + np.arange(cfg.query_probes)) & (cfg.capacity - 1)
         hit = fp_np[cand] == want[:, None]
         found = cand[hit.any(1), hit[hit.any(1)].argmax(1)]
@@ -322,6 +366,144 @@ def check_assoc(dev, feed, n_map_scans: int = 20, reps: int = 10):
             "library_note": "no single PyTorch call probes a hash table and merges moments"}
 
 
+def _downsampled_world(feed, k, pose, dev, budget: int = 8192):
+    """Scan ``k``'s points downsampled as the odometry downsamples them
+    (0.5 m voxels, the first ``budget`` of the packed output) and placed at
+    ``pose`` (not deskewed): ``(xyz (budget, 3), mask (budget,))``."""
+    import torch
+
+    from fastliosam_tpu_torch.core.pointcloud import Cloud, voxel_downsample
+
+    ds = voxel_downsample(Cloud(torch.from_numpy(feed["xyz"][k]).to(dev),
+                                torch.from_numpy(feed["mask"][k]).to(dev)), 0.5)
+    pose = torch.from_numpy(pose).to(dev)
+    return (ds.xyz[:budget] @ pose[:3, :3].T + pose[:3, 3]).contiguous(), ds.mask[:budget]
+
+
+def _insert_bytes(fp_np, cfg, xyz, mask, sl, rounds: int) -> int:
+    """HBM bytes the insert must move: the distinct fingerprint sectors of
+    every probe chain walked (to the slot found, or ``rounds`` long where
+    none was), the sectors of the new fingerprint words and coordinate rows
+    and of the old moment words read, the xyz and mask read and the sl,
+    upd and n_dropped writes. ``fp_np``: the fingerprints before."""
+    import torch
+
+    from fastliosam_tpu_torch.core import voxel
+    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
+
+    c = cfg.capacity
+    h0 = voxel.hash_slot(voxel.voxel_coords(xyz, cfg.voxel_size), c).to(torch.int64).cpu().numpy()
+    sl, mask = sl.cpu().numpy(), mask.cpu().numpy()
+    found = sl < c
+    steps = np.where(found, ((sl - h0) & (c - 1)) + 1, np.where(mask, rounds, 0))
+    walked = np.concatenate([(h0[steps > k] + k) & (c - 1) for k in range(int(steps.max()))])
+    slots = np.unique(sl[found])
+    new = slots[fp_np[slots] == 0]  # empty before: a winner wrote it
+    n = len(sl)
+    return (sector_bytes(walked, 1) + sector_bytes(new, 1) + sector_bytes(new, 3)
+            + sector_bytes(slots * 10, 1) + n * (12 + 1) + n * (8 + 40) + 4)
+
+
+def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
+    """The map insert's kernel against its plain version, bit for bit on
+    ``fp``, ``coords``, ``sl``, ``n_dropped`` and the ``upd`` rows of the
+    assigned points (the unassigned rows go to the moment scatter's dead
+    segment and are never read): the engine's 2^19-slot map after
+    ``n_map_scans`` figure-8 scans (``figure8_map``), inserting the
+    downsampled points of each of the next ``reps`` scans at the engine's
+    poses, 2 rounds; a tight 2^12-slot table with drops (16,384 points, 4
+    rounds); and the map after ``evict_far`` with a re-insert. The kernel
+    is timed alone on fresh copies of the tables over the ``reps`` scans
+    (and at 1 and 4 rounds), beside the whole call with its table copies,
+    the plain version, the bound and the grid barriers alone at the
+    kernel's grid. Returns the record (the kernels line)."""
+    import torch
+
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import insert_cuda
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    m, cfg, traj, _ = fig8
+    maxp, vs = cfg.max_points_per_voxel, cfg.voxel_size
+    rounds = max(cfg.insert_probes, cfg.claim_probes)
+    sets = [_downsampled_world(feed, k, traj[k], dev)
+            for k in range(n_map_scans, n_map_scans + reps)]
+
+    def compare(name, fp, coords, moments, xyz, mask, rnds):
+        got = insert_cuda.insert_claim_cuda(fp, coords, moments, xyz, mask, vs, rnds, maxp)
+        want = insert_cuda.insert_claim_ref(fp, coords, moments, xyz, mask, vs, rnds, maxp)
+        torch.cuda.synchronize()
+        cap = fp.shape[0]
+        assigned = want[2] < cap
+        same = {
+            "fp": torch.equal(got[0], want[0]), "coords": torch.equal(got[1], want[1]),
+            "sl": torch.equal(got[2], want[2]), "n_dropped": torch.equal(got[4], want[4]),
+            "upd (assigned rows)": torch.equal(got[3][assigned].view(torch.int32),
+                                               want[3][assigned].view(torch.int32)),
+        }
+        bad = [k for k, ok in same.items() if not ok]
+        if bad:
+            raise AssertionError(f"insert_claim {name}: kernel and plain version differ on "
+                                 + ", ".join(bad))
+        return got
+
+    new_voxels = []
+    for xyz, mask in sets:
+        got = compare("figure-8", m.fp, m.coords, m.moments, xyz, mask, rounds)
+        new_voxels.append(int((got[0] != 0).sum()) - int((m.fp != 0).sum()))
+    # tight: two scans' points into 2^12 slots, 4 rounds
+    tight_xyz = torch.cat([sets[0][0], sets[1][0]])
+    tight_mask = torch.cat([sets[0][1], sets[1][1]])
+    tight = vh.make_map(vh.VoxelMapConfig(capacity=1 << 12), dev)
+    got = compare("tight 2^12", tight.fp, tight.coords, tight.moments, tight_xyz, tight_mask, 4)
+    tight_dropped = int(got[4])
+    if tight_dropped == 0:
+        raise AssertionError("insert_claim tight case: the 2^12 table must overflow")
+    # evicted: holes punched around the pose of the first inserted scan
+    ev = vh.evict_far(m, cfg, torch.from_numpy(traj[n_map_scans][:3, 3]).to(dev), 8.0)
+    compare("evicted", ev.fp, ev.coords, ev.moments, *sets[0], rounds)
+    print(f"  insert_claim: equal on the figure-8 map ({reps} scans, "
+          f"{np.mean(new_voxels):.0f} new voxels per insert), the tight 2^12 table "
+          f"({tight_dropped} of {int(tight_mask.sum())} points dropped) and the evicted map "
+          f"({int((m.fp != 0).sum()) - int((ev.fp != 0).sum())} voxels evicted)")
+
+    # timing: the launch alone (the claim table's zeroing and the kernel),
+    # each call on its own fresh copy of the tables; device_ms makes 3
+    # untimed calls (warm-up, enqueue time) before the timed ones
+    def launch(r):
+        fresh = iter([(m.fp.clone(), m.coords.clone()) for _ in range(reps + 3)])
+        return lambda x, k: insert_cuda.insert_claim_into(*next(fresh), m.moments, x, k, vs, r,
+                                                          maxp)
+
+    times = {r: device_ms(launch(r), sets) for r in (1, 2, 4)}
+    ms = times[rounds]
+    call_ms = device_ms(lambda x, k: insert_cuda.insert_claim_cuda(
+        m.fp, m.coords, m.moments, x, k, vs, rounds, maxp), sets)
+    plain_ms = device_ms(lambda x, k: insert_cuda.insert_claim_ref(
+        m.fp, m.coords, m.moments, x, k, vs, rounds, maxp), sets)
+    blocks, per_thread = insert_cuda.insert_claim_grid(sets[0][0].shape[0], dev)
+    sync_ms = {s: device_ms(lambda b, s=s: insert_cuda.grid_sync_probe(b, s, dev),
+                            [(blocks,)] * reps) for s in (0, 2 * rounds)}
+    per_sync = (sync_ms[2 * rounds] - sync_ms[0]) / (2 * rounds)
+    fp_np = m.fp.cpu().numpy()
+    nbytes = [_insert_bytes(fp_np, cfg, xyz, mask, insert_cuda.insert_claim_cuda(
+        m.fp, m.coords, m.moments, xyz, mask, vs, rounds, maxp)[2], rounds)
+        for xyz, mask in sets]
+    bound_ms = float(np.mean(nbytes)) / H100_BYTES_PER_S * 1e3
+    print(f"  insert_claim 8192 points, 2^19-slot map, {rounds} rounds: kernel {ms:.4f} ms "
+          f"(1 round {times[1]:.4f}, 4 rounds {times[4]:.4f}), whole call with its table "
+          f"copies {call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({np.mean(nbytes):.0f} HBM bytes); grid {blocks} x 256 threads, {per_thread} "
+          f"point(s) a thread: a grid barrier {per_sync * 1e3:.2f} us "
+          f"({2 * rounds} barriers = {2 * rounds * per_sync / ms:.0%} of the kernel), "
+          f"an empty cooperative launch {sync_ms[0]:.4f} ms")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "library_note": "none: no PyTorch call probes and claims a hash table",
+            "ms_by_rounds": times, "call_ms": call_ms, "grid_blocks": blocks,
+            "grid_sync_ms": per_sync, "empty_launch_ms": sync_ms[0]}
+
+
 def experiment_phase(dev):
     """The gather experiment entry point, once: the path of take_along_axis
     (its launch count is read around this run). Returns the record of the
@@ -335,8 +517,10 @@ def experiment_phase(dev):
     recs = exp_gather.run(dev, print_fn=lambda line: print("  " + line))
     launches = {mod.KERNEL["name"]: mod.launches for mod in KERNEL_MODULES}
     big = next(r for r in recs if r["name"] == "tal_big")
+    probe = next(r for r in recs if r["name"] == "tal_big_ceiling_probe")
     main = {"max_abs_err": 0.0, **{k: big[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                       "bound_by", "library_ms")}}
+                                                       "bound_by", "library_ms")},
+            "ceiling_probe_ms": probe["ms"]}
     return main, launches, recs
 
 
@@ -613,9 +797,11 @@ def _launch_counts(fn):
 
 
 def _per_scan(launches, scans) -> dict:
-    """The association's kernels per scan: gather_rows (the insert's table
-    reads) and merged_moments (one per association)."""
-    return {name: launches[name] / scans for name in ("gather_rows", "merged_moments")}
+    """The map's kernels per scan: insert_claim (one per insert),
+    merged_moments (one per association) and gather_rows (the plane
+    refresh of the loop closure's throwaway map)."""
+    return {name: launches[name] / scans
+            for name in ("insert_claim", "merged_moments", "gather_rows")}
 
 
 def _window_ops(run, top: int = 6) -> float:
@@ -687,8 +873,9 @@ def per_scan_phase(dev, feed):
         and bool(np.all(np.isfinite(engine.keyframe_poses()))),
         "n_matched > 500 after scan 2": result["min_matched_after_scan2"] > 500,
         "at least one verification": n_verify >= 1,
-        "nearest_neighbors, gather_rows and merged_moments launched":
-            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments")) > 0,
+        "nearest_neighbors, gather_rows, merged_moments and insert_claim launched":
+            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments",
+                                      "insert_claim")) > 0,
         "ATE < 0.10 m": ate < 0.10,
         "replay bit-identical": result["replay_bit_identical"],
     })
@@ -739,8 +926,9 @@ def chunked_phase(dev, feed, chunk: int = 5):
         "at least one loop": result["loops"] >= 1,
         "<= 1 host read per chunk for odometry + keyframing":
             result["odom_keyframe_reads_per_chunk"] <= 1.0,
-        "nearest_neighbors, gather_rows and merged_moments launched":
-            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments")) > 0,
+        "nearest_neighbors, gather_rows, merged_moments and insert_claim launched":
+            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments",
+                                      "insert_claim")) > 0,
         "replay bit-identical": result["replay_bit_identical"],
     })
     return result
@@ -800,8 +988,8 @@ def gps_phase(dev, feed, chunk: int = 5):
         "at least 1 solve": result["solves"] >= 1,
         "every pose finite": bool(np.all(np.isfinite(poses))),
         "ATE with GPS < 2.0 m": result["ate_gps_on_m"] < 2.0,
-        "gather_rows and merged_moments launched":
-            launches["gather_rows"] > 0 and launches["merged_moments"] > 0,
+        "merged_moments and insert_claim launched":
+            launches["merged_moments"] > 0 and launches["insert_claim"] > 0,
     })
     return result
 
@@ -876,7 +1064,6 @@ def main(argv=None) -> int:
         with geometry_precision():
             print("kernel phase:")
             kernels = {"nearest_neighbors": check_nn(dev, args.seed)}
-            kernels["gather_rows"], gather_cases = check_gather(dev, args.seed)
             print("experiment entry point (fastliosam_tpu_torch.scripts.exp_gather):")
             kernels["take_along_axis"], exp_launches, exp_recs = experiment_phase(dev)
             _fail("experiment entry point", {
@@ -889,8 +1076,12 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s more to wait for)")
 
     with geometry_precision():
-        print("kernel phase, association (on the figure-8 map):")
-        kernels["merged_moments"] = check_assoc(dev, fig8)
+        print("kernel phase, row gather, association and insert (on the figure-8 map):")
+        fig8_map = figure8_map(dev, fig8)
+        kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, fig8_map[3])
+        kernels["merged_moments"] = check_assoc(dev, fig8, fig8_map)
+        kernels["insert_claim"] = check_insert(dev, fig8, fig8_map)
+        del fig8_map
         print("per-scan phase (SlamEngine.process):")
         per_scan = per_scan_phase(dev, fig8)
         print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")

@@ -1,4 +1,5 @@
-"""Voxel keys of the hash map: slot hash, fingerprint and voxel centre.
+"""Voxel keys of the hash map: voxel coordinates, slot hash, fingerprint and
+voxel centre.
 
 The hash and the fingerprint are uint32 arithmetic in the JAX package
 (``fastliosam_tpu/map/voxel_hash.py: _hash, _fingerprint``): coordinates
@@ -7,12 +8,12 @@ Torch's uint32 support is thin and ``>>`` on int32 is arithmetic, so these
 emulate them in int64 masked with 0xFFFFFFFF, splitting each multiplier
 into 16-bit halves so no product leaves int64. Both words match the JAX
 package bit for bit, which is what lets the parity tests compare slot
-tables; the association kernel (``csrc/assoc.cu``) computes the same words
-in native uint32.
+tables; the kernels that probe the map (``csrc/voxel_keys.cuh``) compute
+the same words in native uint32.
 
-Used by the map (``map/voxel_hash.py``) and by the association's plain
-version (``ops/assoc_cuda.py``), which is why they live here and not in
-either.
+Used by the map (``map/voxel_hash.py``) and by the plain versions of the
+association and the insert (``ops/assoc_cuda.py``, ``ops/insert_cuda.py``),
+which is why they live here and not in any of them.
 """
 from __future__ import annotations
 
@@ -21,6 +22,14 @@ import torch
 P1, P2, P3 = 73856093, 19349669, 83492791  # slot hash
 Q1, Q2, Q3 = 2654435761, 805459861, 3674653429  # fingerprint hash
 _MASK32 = 0xFFFFFFFF
+
+
+def voxel_coords(xyz, voxel_size):
+    """int32 voxel coordinates of float32 points (..., 3). Multiplies by the
+    float32 reciprocal: XLA compiles the JAX package's ``xyz / voxel_size``
+    that way, and a point on a voxel boundary must land in the same voxel
+    as in the (always compiled) JAX package."""
+    return torch.floor(xyz * (1.0 / voxel_size)).to(torch.int32)
 
 
 def _mul32(a, k: int):

@@ -24,9 +24,8 @@
 // element (a, b) of tot_o is
 //   ((((acc + o_ab) + s_a dc_b) + s_b dc_a) + c (dc_a dc_b)),
 // which keeps all nine entries (the two triangles need not agree bitwise).
-// The hash and the fingerprint are native uint32 arithmetic: wrapping
-// products and a logical >>, the words of the JAX package's uint32 and of
-// the port's int64 emulation (core/voxel.py).
+// The hash, the fingerprint and the voxel centre come from voxel_keys.cuh,
+// which the map insert's kernel (insert.cu) shares.
 //
 // Bound on the card: bytes. Per query and pool, `probes` 32-byte
 // fingerprint sectors and, where a slot is found, the 40-byte moment row
@@ -46,26 +45,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "voxel_keys.cuh"
+
 namespace {
+
+using voxel_keys::center;
 
 constexpr int kThreads = 128;
 constexpr int kMaxProbes = 8;
-constexpr uint32_t kP1 = 73856093u, kP2 = 19349669u, kP3 = 83492791u;
-constexpr uint32_t kQ1 = 2654435761u, kQ2 = 805459861u, kQ3 = 3674653429u;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
-
-// (float(c) + 0.5) * vs, rounded as the plain version's voxel_center
-__device__ __forceinline__ float center(int c, float vs) {
-  return __fmul_rn(__fadd_rn(__int2float_rn(c), 0.5f), vs);
-}
 
 template <int P>
 __global__ void __launch_bounds__(kThreads)
@@ -86,9 +73,8 @@ merged_moments_kernel(const int32_t* __restrict__ fp, const float2* __restrict__
     vc[p][0] = c[0];
     vc[p][1] = c[1];
     vc[p][2] = c[2];
-    const uint32_t x = (uint32_t)vc[p][0], y = (uint32_t)vc[p][1], z = (uint32_t)vc[p][2];
-    h0[p] = mix32(x * kP1 + y * kP2 + z * kP3) & cap_mask;
-    want[p] = (int32_t)(mix32(x * kQ1 + y * kQ2 + z * kQ3) | 1u);
+    h0[p] = voxel_keys::hash_slot(vc[p][0], vc[p][1], vc[p][2]) & cap_mask;
+    want[p] = voxel_keys::fingerprint(vc[p][0], vc[p][1], vc[p][2]);
   }
 
   // every probe of every pool: independent loads, all in flight together

@@ -5,9 +5,10 @@
 // (pallas_call at lines 92 and 116): both compute table[idx] for a
 // (C, 16) float32 table and 8192 int32 indices, the first as vector
 // indexing, the second as one dynamic_slice per row. On the engine path the
-// same kernel is the voxel-hash map insert's read of the moment table
-// (C, 10), the fingerprint table (C,) and the voxel coordinates (C, 3); the
-// association's reads are fused into csrc/assoc.cu.
+// same kernel is the plane refresh's read of the moment table (C, 10) and
+// the voxel coordinates (C, 3) (the loop closure's throwaway map); the
+// association's reads are fused into csrc/assoc.cu, the insert's into
+// csrc/insert.cu.
 //
 // Semantics (the JAX rule for table[idx], and the plain version's):
 //   * a negative index wraps once (-1 -> C-1); what is still out of range

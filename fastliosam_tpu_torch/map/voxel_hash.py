@@ -17,9 +17,10 @@ new tensors and leave the input map untouched, as the JAX functions do.
 The merged plane queries make one call of
 :func:`ops.assoc_cuda.merged_moments` per association: probe, moment read
 and re-referenced sums, one hand-written CUDA launch on the card. The
-insert's table reads (fingerprint probes, the saturation check, the
-moment and coordinate reads of the plane fits) go through
-:func:`ops.gather_cuda.gather_rows`, the CUDA row gather; the moment
+insert's probe-and-claim rounds, saturation check and moment-update rows
+are one call of :func:`ops.insert_cuda.insert_claim`, one launch too; the
+plane refresh's moment and coordinate reads go through
+:func:`ops.gather_cuda.gather_rows`, the CUDA row gather. The moment
 scatter sums duplicates in a fixed order (``core/segment.py``), so the map
 is bit-deterministic run to run.
 """
@@ -32,11 +33,11 @@ import torch
 
 from ..core import segment
 from ..core.eigh3 import smallest_eigvec3
-from ..core.voxel import fingerprint as _fingerprint
-from ..core.voxel import hash_slot as _hash
 from ..core.voxel import voxel_center as _voxel_center
+from ..core.voxel import voxel_coords as _voxel_coords
 from ..ops.assoc_cuda import merged_moments
 from ..ops.gather_cuda import gather_rows
+from ..ops.insert_cuda import insert_claim
 from ..utils.device import resolve_device
 
 
@@ -79,19 +80,6 @@ def make_map(cfg: VoxelMapConfig, device=None) -> VoxelMap:
     )
 
 
-def _voxel_coords(xyz, voxel_size):
-    # multiply by the float32 reciprocal: XLA compiles the JAX package's
-    # ``xyz / voxel_size`` that way, and a point on a voxel boundary must
-    # land in the same voxel as in the (always compiled) JAX package
-    return torch.floor(xyz * (1.0 / voxel_size)).to(torch.int32)
-
-
-def _outer6(v):
-    """Upper-triangle outer product packing (..., 3) -> (..., 6)."""
-    x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    return torch.stack([x * x, x * y, x * z, y * y, y * z, z * z], dim=-1)
-
-
 def _unpack_sym(m6):
     """(..., 6) -> (..., 3, 3) symmetric."""
     xx, xy, xz, yy, yz, zz = (m6[..., i] for i in range(6))
@@ -115,57 +103,21 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     """Insert a masked batch of world-frame points. Returns ``(map,
     n_dropped)``.
 
-    Fused match-or-claim probing: each round gathers the fingerprints once,
+    Fused match-or-claim probing (:func:`ops.insert_cuda.insert_claim`, one
+    CUDA launch on the card): each round reads the fingerprints once,
     adopts a slot whose fingerprint matches, or claims an empty one in a
-    scatter-max tournament on ``pid + 1`` (highest point index wins, as in
-    the JAX package); same-voxel losers adopt the winner's entry on the
-    re-check, true collisions advance to the next probe offset.
+    tournament on ``pid + 1`` (highest point index wins, as in the JAX
+    package); same-voxel losers adopt the winner's entry on the re-check,
+    true collisions advance to the next probe offset. The moment scatter
+    after it sums duplicates in a fixed order.
     """
     cap = cfg.capacity
-    dev = xyz.device
-    coords = _voxel_coords(xyz, cfg.voxel_size)
-    h0 = _hash(coords, cap).to(torch.int64)
-    want = _fingerprint(coords)
-    n = xyz.shape[0]
-    pid1 = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
-
-    fp = m.fp.clone()
-    slots = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    poff = torch.zeros((n,), dtype=torch.int64, device=dev)
-    won_slot = torch.full((n,), cap, dtype=torch.int64, device=dev)
-    for _ in range(max(cfg.insert_probes, cfg.claim_probes)):
-        cand = (h0 + poff) & (cap - 1)
-        unassigned = (slots < 0) & mask
-        cur = gather_rows(fp, cand)
-        slots = torch.where(unassigned & (cur == want), cand, slots)
-        tryclaim = unassigned & (cur == 0)
-        claim = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
-        claim.scatter_reduce_(0, cand, torch.where(tryclaim, pid1, 0), "amax")
-        won = tryclaim & (claim[cand] == pid1)
-        # empty slots hold fp == 0, so adding writes exactly the winner's word
-        fp.index_add_(0, cand, want * won.to(torch.int32))
-        won_slot = torch.where(won, cand, won_slot)
-        cur2 = gather_rows(fp, cand)
-        slots = torch.where((slots < 0) & mask & (cur2 == want), cand, slots)
-        poff = torch.where(
-            (slots < 0) & mask & (cur2 != 0) & (cur2 != want), poff + 1, poff
-        )
-    coords_tbl = _with_drop_row(m.coords)
-    coords_tbl[won_slot] = coords  # winners hold unique slots
-    coords_tbl = coords_tbl[:cap]
-
-    assigned = (slots >= 0) & mask
-    n_dropped = torch.sum(mask & ~assigned, dtype=torch.int32)
-    sl = torch.where(assigned, slots, cap)
-
-    # moment saturation: stop accumulating once a voxel is very full
-    room = gather_rows(m.moments, sl)[:, 0] < cfg.max_points_per_voxel
-    w = (assigned & room).to(torch.float32)
-    rel = xyz - _voxel_center(coords, cfg.voxel_size)
-    upd = torch.cat([torch.ones_like(w)[:, None], rel, _outer6(rel)], dim=-1) * w[:, None]
+    fp, coords_tbl, sl, upd, n_dropped = insert_claim(
+        m.fp, m.coords, m.moments, xyz.contiguous(), mask.contiguous(), cfg.voxel_size,
+        max(cfg.insert_probes, cfg.claim_probes), cfg.max_points_per_voxel)
     # duplicates sum in index order on the CPU and on the card alike (no
     # atomics: core/segment.py), so the map is bit-deterministic as in JAX
-    plan = segment.segment_plan(sl, dead=~assigned)  # unassigned: the drop row
+    plan = segment.segment_plan(sl, dead=sl == cap)  # unassigned: the drop row
     moments = segment.index_add_(_with_drop_row(m.moments), plan, upd)[:cap]
 
     m = m._replace(fp=fp, coords=coords_tbl, moments=moments)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under the
-repository root (the hash of the source names the library, so an edited
-source never loads a stale build). Nothing is built at import time: the
+repository root (the hash of the source, the shared headers ``csrc/*.cuh``
+and the flags names the library, so an edited source or header never
+loads a stale build). Nothing is built at import time: the
 first launch builds what it needs, and :func:`build` compiles several
 sources at once, one ``nvcc`` process each, all started together.
 """
@@ -41,9 +42,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of the source,
+    of every shared header ``csrc/*.cuh`` and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> None:

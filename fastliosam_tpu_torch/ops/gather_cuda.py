@@ -3,12 +3,13 @@ PyTorch version, and the dispatch between them.
 
 Port of the Pallas TPU kernels ``scripts/exp_assoc_kernels.py:
 exp_a_int_indexing`` and ``exp_b_fori_dynamic_slice`` (both compute
-``table[idx]``). On the engine path it is the voxel-hash map insert's
-read of the fingerprint, coordinate and moment tables
-(``map/voxel_hash.py``); the association's reads are fused into
-``ops/assoc_cuda.py``. :func:`gather_rows` launches the kernel for CUDA
-tensors (or raises) and runs the plain version only for tensors on the
-CPU; there is no fallback from one to the other.
+``table[idx]``). On the engine path it is the plane refresh's read of
+the moment and coordinate tables (``map/voxel_hash.py: _fit_planes``, the
+loop closure's throwaway map); the association's reads are fused into
+``ops/assoc_cuda.py``, the insert's into ``ops/insert_cuda.py``.
+:func:`gather_rows` launches the kernel for CUDA tensors (or raises) and
+runs the plain version only for tensors on the CPU; there is no fallback
+from one to the other.
 
 Index rule (JAX's for ``table[idx]``): a negative index wraps once
 (``-1`` -> ``C-1``) and what is still out of range clamps to ``[0, C-1]``.

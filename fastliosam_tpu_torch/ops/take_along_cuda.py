@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build
@@ -48,6 +49,11 @@ def _lib():
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        lib.random_read_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.random_read_launch.restype = ctypes.c_int
     return lib
 
 
@@ -102,3 +108,30 @@ def take_along_axis(tab, idx, axis: int):
     if tab.is_cuda:
         return take_along_axis_cuda(tab, idx, axis)
     return take_along_axis_ref(tab, idx, axis)
+
+
+def random_read_probe(buf, n: int, seed: int = 0):
+    """The random-read ceiling of the map-size ``take_along_axis``: ``n``
+    float32 words, each read from a pseudo-random position of ``buf`` (a
+    1-D float32 CUDA tensor of power-of-two length; positions:
+    :func:`random_read_positions`), with no index read. A measuring probe,
+    not a kernel of any path: it counts no launch."""
+    if buf.dtype != torch.float32 or buf.dim() != 1 or not buf.is_cuda:
+        raise ValueError("buf must be a 1-D float32 CUDA tensor")
+    out = torch.empty((n,), dtype=torch.float32, device=buf.device)
+    with torch.cuda.device(buf.device):
+        err = _lib().random_read_launch(buf.data_ptr(), buf.shape[0], n, seed, out.data_ptr(),
+                                        torch.cuda.current_stream(buf.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"random_read probe launch failed: cudaError {err}")
+    return out
+
+
+def random_read_positions(n: int, n_buf: int, seed: int = 0):
+    """The positions :func:`random_read_probe` reads (its hash in numpy)."""
+    h = (np.arange(n, dtype=np.uint64) * 0x9E3779B1 + seed) & 0xFFFFFFFF
+    for shift, mul in ((16, 0x85EBCA6B), (13, 0xC2B2AE35), (16, None)):
+        h ^= h >> shift
+        if mul is not None:
+            h = (h * mul) & 0xFFFFFFFF
+    return (h & (n_buf - 1)).astype(np.int64)

@@ -12,8 +12,11 @@ PyTorch library call that computes the same function (``index_select``,
 ``gather``) with CUDA events around back-to-back device work
 (``utils/timing.py``). The bound counts the HBM bytes the call must
 move: the 32-byte sectors the indexed elements touch, the index read and
-the output write. On the CPU (``--device cpu``) the plain versions run and
-nothing is timed. Prints one line per experiment.
+the output write. On the card a ceiling probe follows the map-size
+``take_along_axis``: as many random 4-byte reads from a buffer of the same
+256 MB, and nothing else (no index read), the rate random sectors reach
+from HBM. On the CPU (``--device cpu``) the plain versions run, nothing is
+timed and the probe is skipped. Prints one line per experiment.
 """
 from __future__ import annotations
 
@@ -127,8 +130,23 @@ def _one(exp, dev, reps: int, seed: int) -> dict:
     return rec
 
 
+def ceiling_probe(dev, words: int, n: int, reps: int, seed: int = 0) -> dict:
+    """Time :func:`ops.take_along_cuda.random_read_probe`: ``n`` random
+    4-byte reads from a ``words``-long float32 buffer (fresh positions per
+    rep). Its bound counts the distinct sectors read and the output."""
+    buf = torch.zeros((words,), dtype=torch.float32, device=dev)
+    seeds = [seed + r for r in range(reps)]
+    ms = device_ms(lambda s: take_along_cuda.random_read_probe(buf, n, s), [(s,) for s in seeds])
+    pos = take_along_cuda.random_read_positions(n, words, seeds[0])
+    nbytes = int(np.unique(pos // (SECTOR // 4)).size) * SECTOR + n * 4
+    return {"name": "tal_big_ceiling_probe", "buffer_words": words, "reads": n, "ms": ms,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "achieved_bytes_per_s": nbytes / (ms * 1e-3), "device": dev.type}
+
+
 def run(device=None, reps: int = 10, seed: int = 0, exps=None, print_fn=print) -> list[dict]:
-    """Run every experiment; returns one record per experiment and prints
+    """Run every experiment (and, on the card, the ceiling probe beside the
+    map-size take_along_axis); returns one record per experiment and prints
     one line each. Raises if a kernel disagrees with its plain version."""
     dev = resolve_device(device)
     out = []
@@ -145,6 +163,14 @@ def run(device=None, reps: int = 10, seed: int = 0, exps=None, print_fn=print) -
                  f"equal={rec['equal']} library_equal={rec['library_equal']}, {timing}")
         if not (rec["equal"] and rec["library_equal"]):
             raise AssertionError(f"{rec['name']}: kernel and plain version disagree")
+        if exp["name"] == "tal_big" and dev.type == "cuda":
+            words = int(np.prod(exp["table"]))
+            probe = ceiling_probe(dev, words, int(np.prod(exp["idx"])), reps, seed + k)
+            out.append(probe)
+            print_fn(f"{probe['name']}: {probe['reads']} random 4-byte reads from "
+                     f"{words * 4 >> 20} MB: {probe['ms']:.4f} ms, "
+                     f"{probe['achieved_bytes_per_s'] / 1e12:.3f} TB/s of distinct sectors "
+                     f"(bound {probe['bound_ms']:.5f} ms)")
     return out
 
 

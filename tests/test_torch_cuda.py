@@ -170,6 +170,9 @@ def test_gather_rows_kernel_matches_plain_version(cuda_device, c, d, n, dtype, i
 @pytest.mark.parametrize("rows,cols,out_rows,out_cols,axis", [
     (4096, 128, 64, 128, 0), (8, 512, 8, 512, 1), (1 << 19, 128, 8192, 128, 0),
     (37, 5, 11, 5, 0), (6, 33, 6, 70, 1),
+    # the vector path with rows that are not a power of two
+    (5000, 72, 4000, 72, 0), (2048, 96, 2048, 160, 1),
+    (1024, 512, 1024, 512, 1),
 ])
 def test_take_along_kernel_matches_plain_version(cuda_device, rows, cols, out_rows,
                                                  out_cols, axis):
@@ -184,6 +187,32 @@ def test_take_along_kernel_matches_plain_version(cuda_device, rows, cols, out_ro
     assert take_along_cuda.launches == before + 1
     want = take_along_cuda.take_along_axis_ref(tab, idx, axis)
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_take_along_kernel_map_size_wrap_and_nan_fill(cuda_device):
+    """The (2^19, 128) table with planted negative indices (wrap once) and
+    indices out of range on both sides (NaN fill): equal bit for bit, and
+    the fill lands exactly where planted."""
+    rows, cols = 1 << 19, 128
+    rng = np.random.default_rng(19)
+    tab = torch.from_numpy(rng.normal(size=(rows, cols)).astype(np.float32)).to(cuda_device)
+    idx = rng.integers(0, rows, size=(8192, cols)).astype(np.int64)
+    flat = idx.reshape(-1)
+    spots = rng.choice(flat.size, size=4000, replace=False)
+    flat[spots[:1000]] = rng.integers(-rows, 0, size=1000)  # wrap once
+    flat[spots[1000:2000]] = rng.integers(rows, 2 ** 31 - 1, size=1000)  # fill
+    flat[spots[2000:3000]] = rng.integers(-2 ** 31, -rows, size=1000)  # fill
+    flat[spots[3000:]] = [-1, rows, -rows, -rows - 1] * 250  # the edges
+    idx_t = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+    got = take_along_cuda.take_along_axis(tab, idx_t, 0)
+    want = take_along_cuda.take_along_axis_ref(tab, idx_t, 0)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    nan = np.isnan(got.cpu().numpy().reshape(-1))
+    out = (flat < -rows) | (flat >= rows)
+    np.testing.assert_array_equal(nan, out)
+    assert out.sum() == 2000 + 500
 
 
 @pytest.mark.cuda
@@ -357,3 +386,142 @@ def test_assoc_kernel_rejects_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             assoc_cuda.merged_moments_cuda(*args)
     assoc_cuda.merged_moments_cuda(*ok)  # and the good call goes through
+
+
+# ---------------------------------------------------------------------------
+# the map insert's probe-and-claim rounds: kernel and plain version bit for
+# bit on fp, coords, sl, n_dropped and the upd rows of assigned points (the
+# unassigned rows go to the moment scatter's dead segment, never read)
+# ---------------------------------------------------------------------------
+from fastliosam_tpu_torch.ops import insert_cuda  # noqa: E402
+
+
+def _insert_check(dev, m, xyz, mask, rounds, voxel_size=0.5, max_points=1000.0):
+    args = (m.fp.to(dev), m.coords.to(dev), m.moments.to(dev), xyz.to(dev), mask.to(dev),
+            voxel_size, rounds, max_points)
+    before = insert_cuda.launches
+    got = insert_cuda.insert_claim(*args)
+    torch.cuda.synchronize()
+    assert insert_cuda.launches == before + 1
+    want = insert_cuda.insert_claim_ref(*args)
+    cap = m.fp.shape[0]
+    for k in (0, 1, 2, 4):
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        np.testing.assert_array_equal(got[k].cpu().numpy(), want[k].cpu().numpy())
+    assigned = (want[2] < cap).cpu().numpy()
+    np.testing.assert_array_equal(_bits(got[3])[assigned], _bits(want[3])[assigned])
+    return got
+
+
+def _prefilled(vh, cfg, pts, mask):
+    """A map filled on the CPU (plain version), for the card's inputs."""
+    m, _ = vh.insert(vh.make_map(cfg, "cpu"), cfg, pts, mask, refresh_planes=False)
+    return m
+
+
+def _insert_case(case, rounds):
+    """``(map, xyz, mask, max_points)`` on the CPU for one card case."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    rng = np.random.default_rng(rounds + len(case))
+    cap, n, half = {"roomy": (1 << 12, 3000, 3.0), "tight": (1 << 9, 3000, 6.0),
+                    "all_masked": (1 << 12, 2000, 3.0), "ragged_n": (1 << 14, 8229, 12.0),
+                    "large_n": (1 << 20, 300_000, 60.0), "one_voxel": (1 << 10, 2010, 0.0)}[case]
+    cfg = vh.VoxelMapConfig(capacity=cap, insert_probes=rounds, claim_probes=rounds)
+    max_points = 1000.0
+    if case == "one_voxel":
+        # 2000 points in a saturated voxel, 10 in one with room (5 points at most)
+        a, b = np.array([0.1, 0.2, 0.3]), np.array([3.1, -2.2, 0.3])
+        pre = np.concatenate([a + rng.uniform(0, 0.2, (10, 3)), b + rng.uniform(0, 0.2, (2, 3))])
+        m = _prefilled(vh, cfg, torch.from_numpy(pre.astype(np.float32)),
+                       torch.ones(12, dtype=torch.bool))
+        xyz = np.concatenate([a + rng.uniform(0, 0.2, (2000, 3)),
+                              b + rng.uniform(0, 0.2, (10, 3))])
+        return m, torch.from_numpy(xyz.astype(np.float32)), torch.ones(n, dtype=torch.bool), 5.0
+    xyz = torch.from_numpy(rng.uniform(-half, half, size=(n, 3)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=n) > 0.1)
+    if case == "all_masked":
+        mask = torch.zeros(n, dtype=torch.bool)
+    pre = torch.from_numpy(rng.uniform(-half, half, size=(n // 2, 3)).astype(np.float32))
+    m = _prefilled(vh, cfg, pre, torch.ones(n // 2, dtype=torch.bool))
+    return m, xyz, mask, max_points
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["roomy", "tight", "all_masked", "one_voxel", "ragged_n",
+                                  "large_n"])
+@pytest.mark.parametrize("rounds", [1, 2, 4])
+def test_insert_kernel_matches_plain_version(cuda_device, case, rounds):
+    m, xyz, mask, max_points = _insert_case(case, rounds)
+    got = _insert_check(cuda_device, m, xyz, mask, rounds, max_points=max_points)
+    dropped, n = int(got[4]), xyz.shape[0]
+    if case == "tight":
+        assert dropped > 0  # the table really overflows
+    if case == "all_masked":
+        assert dropped == 0 and bool((got[2] == m.fp.shape[0]).all())
+        assert torch.equal(got[0].cpu(), m.fp)
+    if case == "one_voxel":  # the saturated voxel takes no update, the other one does
+        w = got[3][:, 0].cpu()
+        assert bool((w[:2000] == 0).all()) and bool((w[2000:] == 1).all())
+    if case == "large_n":
+        blocks, per_thread = insert_cuda.insert_claim_grid(n, cuda_device)
+        assert per_thread >= 2  # beyond one point per thread of a full grid
+
+
+@pytest.mark.cuda
+def test_insert_kernel_evicted_holes(cuda_device):
+    """Holes that evict_far punched in the probe chains, refilled by an
+    overlapping re-insert: kernel and plain version agree."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    rng = np.random.default_rng(3)
+    cfg = vh.VoxelMapConfig(capacity=1 << 10, insert_probes=4, claim_probes=4)
+    m = _prefilled(vh, cfg, torch.from_numpy(rng.uniform(-5, 5, (3000, 3)).astype(np.float32)),
+                   torch.ones(3000, dtype=torch.bool))
+    ev = vh.evict_far(m, cfg, torch.tensor([2.0, 0.0, 0.0]), 4.0)
+    assert int((ev.fp != 0).sum()) < int((m.fp != 0).sum())
+    xyz = torch.from_numpy(rng.uniform(-5, 5, (3000, 3)).astype(np.float32))
+    got = _insert_check(cuda_device, ev, xyz, torch.ones(3000, dtype=torch.bool), 4)
+    assert int((got[0].cpu()[ev.fp == 0] != 0).sum()) > 0  # holes refilled
+
+
+@pytest.mark.cuda
+def test_insert_kernel_repeat_identical_words(cuda_device):
+    m, xyz, mask, _ = _insert_case("tight", 2)
+    args = (m.fp.to(cuda_device), m.coords.to(cuda_device), m.moments.to(cuda_device),
+            xyz.to(cuda_device), mask.to(cuda_device), 0.5, 2, 1000.0)
+    first = insert_cuda.insert_claim_cuda(*args)
+    second = insert_cuda.insert_claim_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):  # every word, the unassigned upd rows too
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_insert_kernel_rejects_bad_inputs(cuda_device):
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    m = vh.make_map(vh.VoxelMapConfig(capacity=1 << 10), cuda_device)
+    xyz = torch.zeros((16, 3), device=cuda_device)
+    mask = torch.ones(16, dtype=torch.bool, device=cuda_device)
+    ok = (m.fp, m.coords, m.moments, xyz, mask, 0.5, 2, 1000.0)
+    bad = [
+        (m.fp.float(),) + ok[1:],  # dtype
+        (m.fp[:1000].contiguous(),) + ok[1:],  # not a power of two
+        ok[:1] + (m.coords[:, :2].contiguous(),) + ok[2:],
+        ok[:2] + (m.moments[:, :9].contiguous(),) + ok[3:],
+        ok[:3] + (xyz.double(),) + ok[4:],
+        ok[:3] + (xyz[:, :2].contiguous(),) + ok[4:],
+        ok[:3] + (xyz.t().contiguous().t(),) + ok[4:],  # not contiguous
+        ok[:4] + (mask.int(),) + ok[5:],
+        ok[:4] + (mask[:8].contiguous(),) + ok[5:],  # point count
+        ok[:6] + (0,) + ok[7:],  # rounds
+        ok[:3] + (xyz.cpu(),) + ok[4:],  # device
+        (m.fp.cpu(),) + ok[1:],
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            insert_cuda.insert_claim_cuda(*args)
+    insert_cuda.insert_claim_cuda(*ok)  # and the good call goes through

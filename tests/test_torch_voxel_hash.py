@@ -18,6 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from fastliosam_tpu.map import voxel_hash as jvh  # noqa: E402
+from fastliosam_tpu_torch.core import voxel as tvoxel  # noqa: E402
 from fastliosam_tpu_torch.map import voxel_hash as tvh  # noqa: E402
 
 from _torch_parity import N, T, tree_np  # noqa: E402
@@ -33,9 +34,9 @@ def test_hash_and_fingerprint_bit_exact(rng):
     coords = np.concatenate([coords, extremes])
     for cap in (1 << 14, 1 << 19):
         np.testing.assert_array_equal(
-            N(tvh._hash(T(coords), cap)), N(jvh._hash(jnp.asarray(coords), cap))
+            N(tvoxel.hash_slot(T(coords), cap)), N(jvh._hash(jnp.asarray(coords), cap))
         )
-    fp_t = N(tvh._fingerprint(T(coords)))
+    fp_t = N(tvoxel.fingerprint(T(coords)))
     np.testing.assert_array_equal(fp_t, N(jvh._fingerprint(jnp.asarray(coords))))
     assert fp_t.dtype == np.int32 and np.all(fp_t % 2 != 0)
 
@@ -157,7 +158,7 @@ def _assoc_queries(rng, tm, cfg):
     q, qmask = _surfels(rng, n=800, shift=(0.2, 0.1, 0.0))
     fp, coords = N(tm.fp), N(tm.coords)
     occ = np.nonzero(fp != 0)[0]
-    h0 = N(tvh._hash(T(coords[occ]), cfg.capacity)).astype(np.int64)
+    h0 = N(tvoxel.hash_slot(T(coords[occ]), cfg.capacity)).astype(np.int64)
     second = occ[occ == ((h0 + 1) & (cfg.capacity - 1))]
     # the first probe holds another voxel's fingerprint
     assert np.all(fp[(second - 1) & (cfg.capacity - 1)] != fp[second])
@@ -240,8 +241,8 @@ def _composed_totals(m, cfg, pools, coords0, mask):
     tot_s = torch.zeros((n, 3), dtype=torch.float32)
     tot_o = torch.zeros((n, 3, 3), dtype=torch.float32)
     for coords in pools:
-        h0 = tvh._hash(coords, cap).to(torch.int64)
-        want = tvh._fingerprint(coords)
+        h0 = tvoxel.hash_slot(coords, cap).to(torch.int64)
+        want = tvoxel.fingerprint(coords)
         slots = torch.full((n,), -1, dtype=torch.int64)
         for p in range(cfg.query_probes):
             cand = (h0 + p) & (cap - 1)
@@ -278,3 +279,69 @@ def test_merged_moments_equal_previous_composition(rng, mode):
     assert torch.equal(got[:, 1:4], tot_s)
     assert torch.equal(got[:, 4:].reshape(n, 3, 3), tot_o)
     assert int((tot_c > 0).sum()) > 100
+
+
+# ---------------------------------------------------------------------------
+# the insert's probe-and-claim rounds (ops/insert_cuda.py): the plain version
+# of the CUDA kernel csrc/insert.cu, which the kernel is held to bit for bit
+# on the card (tests/test_torch_cuda.py); these pin the semantics it keeps
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_insert_after_evict_matches_jax(rng, name):
+    """Insert, evict_far (holes in the probe chains), re-insert points that
+    overlap the survivors: the re-inserted voxels may claim a hole ahead of
+    their surviving entry (the JAX package's shadowing caveat), as in JAX."""
+    cfg = CFGS[name]
+    pcfg = _port_cfg(cfg)
+    jm, tm, _ = _insert_both(rng, cfg, refresh=False)
+    c = np.array([1.0, -0.5, 0.0], np.float32)
+    jm = jvh.evict_far(jm, cfg, jnp.asarray(c), 4.0)
+    tm = tvh.evict_far(tm, pcfg, T(c), 4.0)
+    holes = int(N(tm.fp == 0).sum())
+    pts, mask = _surfels(rng, shift=(0.35, 0.2, -0.05))
+    jm, jd = j_insert(jm, jnp.asarray(pts), jnp.asarray(mask), cfg, False)
+    tm2, td = tvh.insert(tm, pcfg, T(pts), T(mask), refresh_planes=False)
+    assert int(N(tm2.fp == 0).sum()) < holes  # the re-insert filled holes
+    assert int(jd) == int(td)
+    if name == "tight":
+        assert int(td) > 0
+    np.testing.assert_array_equal(N(tm2.fp), N(jm.fp))
+    np.testing.assert_array_equal(N(tm2.coords), N(jm.coords))
+    np.testing.assert_allclose(N(tm2.moments), N(jm.moments), rtol=1e-5, atol=1e-4)
+
+
+def test_insert_tournament_highest_index_wins(rng):
+    """Six distinct voxels that hash to one slot, inserted together in
+    interleaved order, 4 rounds: each round the voxel of the highest point
+    index among the unassigned wins the next slot of the chain, the
+    losers of other voxels move on, and the last two voxels are dropped.
+    The port's plain version and JAX agree with that order."""
+    cfg = CFGS["roomy"]
+    pcfg = _port_cfg(cfg)
+    cap, rounds = cfg.capacity, max(cfg.insert_probes, cfg.claim_probes)
+    grid = np.stack(np.meshgrid(*[np.arange(-20, 20)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    h0 = N(tvoxel.hash_slot(T(grid.astype(np.int32)), cap))
+    b = int(np.bincount(h0).argmax())
+    vox = grid[h0 == b][:6]
+    assert len(vox) == 6
+    # 3 points per voxel inside it, in a shuffled order
+    owner = rng.permutation(np.repeat(np.arange(6), 3))
+    pts = ((vox[owner] + 0.5) * cfg.voxel_size
+           + rng.uniform(-0.1, 0.1, size=(len(owner), 3)) * cfg.voxel_size).astype(np.float32)
+    mask = np.ones(len(owner), bool)
+    last = np.array([np.nonzero(owner == v)[0].max() for v in range(6)])
+    ranked = np.argsort(-last)  # voxels by their highest point index
+
+    tm, td = tvh.insert(tvh.make_map(pcfg, device="cpu"), pcfg, T(pts), T(mask),
+                        refresh_planes=False)
+    jm, jd = j_insert(jvh.make_map(cfg), jnp.asarray(pts), jnp.asarray(mask), cfg, False)
+    fp = N(tm.fp)
+    want = N(tvoxel.fingerprint(T(vox.astype(np.int32))))
+    for r in range(rounds):
+        assert fp[(b + r) % cap] == want[ranked[r]]
+        np.testing.assert_array_equal(N(tm.coords)[(b + r) % cap], vox[ranked[r]])
+    assert int(td) == 3 * (6 - rounds) == int(jd)
+    assert int((fp != 0).sum()) == rounds
+    np.testing.assert_array_equal(fp, N(jm.fp))
+    np.testing.assert_array_equal(N(tm.coords), N(jm.coords))
+    np.testing.assert_allclose(N(tm.moments), N(jm.moments), rtol=1e-5, atol=1e-4)

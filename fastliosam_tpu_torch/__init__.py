@@ -16,27 +16,37 @@ and deferred paths (``process_chunk``, ``process_chunk_deferred``: no host
 read inside a chunk), with GPS fusion — odometry (IMU propagate, deskew,
 voxel downsample, iEKF against the voxel-surfel hash map), keyframing,
 loop detection, ICP verification, the LM/PCG pose-graph solve, the
-marginal covariance and the WGS84 geodesy. Every TPU (Pallas) kernel in
-the repository has a hand-written CUDA counterpart: the fused
-nearest-neighbour search (``csrc/nn.cu``), the row gather that the
-voxel-hash association reads through (``csrc/gather.cu``) and the 2-D
-``take_along_axis`` of the gather experiments (``csrc/take_along.cu``).
-Float scatter-adds sum in a fixed order, so a run on the card is
-bit-for-bit repeatable, as the JAX package is.
+marginal covariance and the WGS84 geodesy — and the user's entry point
+around it: the KITTI and generic-directory readers with the native
+threaded decoder, ``drive_kitti``, result export, checkpoint/resume, the
+map localizer and the ``run_slam`` / ``localize`` scripts. Every TPU
+(Pallas) kernel in the repository has a hand-written CUDA counterpart:
+the fused nearest-neighbour search (``csrc/nn.cu``), the row gather
+(``csrc/gather.cu``: the loop closure's plane refresh), the association's
+probe-gather-merge (``csrc/assoc.cu``), the map insert's probe-and-claim
+rounds (``csrc/insert.cu``) and the 2-D ``take_along_axis`` of the gather
+experiments (``csrc/take_along.cu``). Float scatter-adds sum in a fixed
+order, so a run on the card is bit-for-bit repeatable, as the JAX
+package is.
 
 Subpackages:
-  core     SO3/SE3 batched ops, closed-form 3x3 eig, voxel downsample,
-           fixed-order scatter-adds, WGS84/ENU/HK1980 geodesy
-  map      voxel-hash surfel map
-  odom     IMU propagation, deskew, iterated ESKF, per-scan step
-  ops      hand-written CUDA kernels, their plain versions, the nvcc build
-  loop     loop candidate search, point-to-point ICP, loop verification
-  pgo      factor-graph storage + LM/PCG solver + marginal covariance
-  runtime  the engine (per scan, chunked, deferred; GPS)
-  scripts  entry points (``python -m fastliosam_tpu_torch.scripts.exp_gather``)
-  sim      synthetic world generator (numpy copy of the JAX package's)
-  eval     ATE / RPE metrics (numpy copy)
-  convert  JAX-package state (as numpy) -> port tensors
+  core         SO3/SE3 batched ops, closed-form 3x3 eig, voxel downsample,
+               fixed-order scatter-adds, WGS84/ENU/HK1980 geodesy
+  map          voxel-hash surfel map
+  odom         IMU propagation, deskew, iterated ESKF, per-scan step
+  ops          hand-written CUDA kernels, their plain versions, the nvcc build
+  loop         loop candidate search, point-to-point ICP, loop verification
+  pgo          factor-graph storage + LM/PCG solver + marginal covariance
+  runtime      the engine (per scan, chunked, deferred; GPS), the KITTI
+               drive loop, export and checkpoint/resume, the map localizer
+  io           KITTI / generic / PCD / pose-file readers and writers, the
+               native reader (numpy copies; ``native/fls_native.cpp``)
+  postprocess  the HTML map viewer (numpy copy)
+  scripts      entry points (``python -m fastliosam_tpu_torch.scripts.run_slam``,
+               ``.localize``, ``.make_kitti_synth``, ``.exp_gather``, ``.ab_trees``)
+  sim          synthetic world generator (numpy copy of the JAX package's)
+  eval         ATE / RPE metrics (numpy copy)
+  convert      JAX-package state (as numpy) -> port tensors
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -6,4 +6,5 @@ from .voxel_hash import (  # noqa: F401
     query_planes_merged,
     query_planes_merged3,
     evict_far,
+    occupied_centroids,
 )

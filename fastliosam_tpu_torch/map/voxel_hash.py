@@ -261,3 +261,12 @@ def evict_far(m: VoxelMap, cfg: VoxelMapConfig, center_xyz, det_range):
         d=m.d * keepf,
         plane_valid=m.plane_valid * keepi,
     )
+
+
+def occupied_centroids(m: VoxelMap, cfg: VoxelMapConfig):
+    """Per-voxel mean points (world frame) + occupancy mask: a compact map
+    snapshot (the localizer's ICP target)."""
+    safe_c = torch.clamp(m.moments[:, 0], min=1.0)
+    pts = _voxel_center(m.coords, cfg.voxel_size) + m.moments[:, 1:4] / safe_c[:, None]
+    occ = m.fp != 0
+    return torch.where(occ[:, None], pts, 1.0e6), occ

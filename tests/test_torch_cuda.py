@@ -11,7 +11,12 @@ Tolerances: nearest neighbours, d2 rtol 1e-5 / atol 1e-4 (the expansion of
 O(10) m² values in float32, with the card's and the CPU's summation
 orders), indices equal except at ties, where the two candidates' distances
 agree within 1e-5; planted exact ties across a slice boundary give exactly
-the lower index, and two launches agree bit for bit. The row gather and
+the lower index, and two launches agree bit for bit; at map coordinates
+(a centroid table up to 60 m) the expansion's rounding grows with
+|s|² + |d|², so there d2 agrees within rtol 1e-5 plus 4 ulps of that sum.
+The insert at the map build's 65,536-point batches and the plane
+refresh's reads at its slots: bit for bit, as below. The KITTI resume:
+two engines from one checkpoint equal bit for bit. The row gather and
 take_along_axis are copies: equal bit for bit (NaN fill included). The
 association's merged moments: equal bit for bit (the kernel rounds every
 product and sum as the plain version does, in its order). The replay: two
@@ -525,3 +530,121 @@ def test_insert_kernel_rejects_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             insert_cuda.insert_claim_cuda(*args)
     insert_cuda.insert_claim_cuda(*ok)  # and the good call goes through
+
+
+# ---------------------------------------------------------------------------
+# the localizer's shapes: the NN of global_init's ICP against a map's voxel
+# centroids, the map build's 65,536-point inserts and the plane refresh's
+# reads at their slots; and a checkpoint resume through drive_kitti's staging
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_nn_kernel_matches_plain_version_centroid_shape(cuda_device):
+    """2048 sources against a (2^17, 3) centroid table with ~70% of its
+    slots empty (masked, at 1e6 as occupied_centroids leaves them), at map
+    coordinates up to 60 m."""
+    rng = np.random.default_rng(17)
+    m = 1 << 17
+    dst = (rng.uniform(-60, 60, size=(m, 3)) * [1, 1, 0.1]).astype(np.float32)
+    occ = rng.uniform(size=m) < 0.3
+    dst[~occ] = 1e6
+    src = (rng.uniform(-60, 60, size=(2048, 3)) * [1, 1, 0.1]).astype(np.float32)
+    s, d, mk = (torch.from_numpy(a).to(cuda_device) for a in (src, dst, occ))
+    k_idx, k_d2 = nn_cuda.nearest_neighbors(s, d, mk)
+    r_idx, r_d2 = nn_cuda.nearest_neighbors_ref(s, d, mk)
+    k_idx, k_d2, r_idx, r_d2 = (t.cpu().numpy() for t in (k_idx, k_d2, r_idx, r_d2))
+    # at 60 m coordinates the float32 expansion |s|^2 + |d|^2 - 2 s.d
+    # rounds to a few ulps of |s|^2 + |d|^2 (~7e3 m^2) in either order:
+    # 4 ulps of that sum on top of rtol 1e-5
+    mag = (src ** 2).sum(-1) + (dst[r_idx] ** 2).sum(-1)
+    tol = 1e-5 * np.abs(r_d2) + 4 * 2.0 ** -23 * mag
+    assert (np.abs(k_d2 - r_d2) <= tol).all()
+    diff = k_idx != r_idx
+    dk = ((src[diff] - dst[k_idx[diff]]) ** 2).sum(-1)
+    dr = ((src[diff] - dst[r_idx[diff]]) ** 2).sum(-1)
+    assert (np.abs(dk - dr) <= tol[diff]).all()
+    assert occ[k_idx].all()
+
+
+def _half_built_map(dev, n=65536, cap=1 << 17):
+    """A map after a first 65,536-point batch, and a second overlapping
+    batch (the map build's inserts, 4 rounds)."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    rng = np.random.default_rng(65)
+    cfg = vh.VoxelMapConfig(capacity=cap)
+    first = torch.from_numpy(rng.uniform(-40, 40, size=(n, 3)).astype(np.float32) * [1, 1, 0.1])
+    m, _ = vh.insert(vh.make_map(cfg, "cpu"), cfg, first.float(), torch.ones(n, dtype=torch.bool))
+    xyz = torch.from_numpy(rng.uniform(-45, 45, size=(n, 3)).astype(np.float32) * [1, 1, 0.1])
+    mask = torch.from_numpy(rng.uniform(size=n) > 0.05)
+    return m, xyz.float(), mask
+
+
+@pytest.mark.cuda
+def test_insert_kernel_matches_plain_version_map_build_batch(cuda_device):
+    m, xyz, mask = _half_built_map(cuda_device)
+    got = _insert_check(cuda_device, m, xyz, mask, 4)
+    assert int((got[0] != 0).sum()) > int((m.fp != 0).sum())
+
+
+@pytest.mark.cuda
+def test_gather_rows_kernel_matches_plain_version_plane_refresh_batch(cuda_device):
+    """The plane refresh after that insert: the (2^17, 10) moments and (2^17,
+    3) coordinates at its 65,536 int64 slots (C where unassigned)."""
+    m, xyz, mask = _half_built_map(cuda_device)
+    args = (m.fp.to(cuda_device), m.coords.to(cuda_device), m.moments.to(cuda_device),
+            xyz.to(cuda_device), mask.to(cuda_device), 0.5, 4, 1000.0)
+    _, coords, sl, _, _ = insert_cuda.insert_claim(*args)
+    assert sl.dtype == torch.int64 and sl.shape == (65536,)
+    for table in (args[2], coords):
+        got = gather_cuda.gather_rows(table, sl)
+        want = gather_cuda.gather_rows_ref(table, sl)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_kitti_checkpoint_resume_bitwise(cuda_device, tmp_path):
+    """60 scans of the synthetic KITTI circuit at small width through the
+    staging of drive_kitti: an engine that saved a checkpoint at scan 30 and an
+    engine restored from it drive scans 30-60 to the same bits."""
+    from fastliosam_tpu_torch.io import KittiSequence
+    from fastliosam_tpu_torch.loop import LoopConfig
+    from fastliosam_tpu_torch.map import VoxelMapConfig
+    from fastliosam_tpu_torch.odom import OdomConfig
+    from fastliosam_tpu_torch.pgo import PoseGraphConfig
+    from fastliosam_tpu_torch.runtime import (EngineConfig, SlamEngine, load_checkpoint,
+                                              save_checkpoint)
+    from fastliosam_tpu_torch.runtime.drivers import kitti_stager
+    from fastliosam_tpu_torch.scripts import make_kitti_synth
+
+    root = str(tmp_path / "kitti")
+    make_kitti_synth.generate(root, "00", n_scans=60, n_azimuth=512, n_elev=16, progress=False)
+    seq = KittiSequence(root, "00")
+
+    def engine():
+        return SlamEngine(
+            odom_cfg=OdomConfig(point_filter_num=1, filter_size_surf=0.5, num_ds_points=2048,
+                                det_range=60.0, evict_every=20, query_mode="merged3"),
+            map_cfg=VoxelMapConfig(capacity=1 << 16, query_probes=2, insert_probes=2,
+                                   claim_probes=2),
+            loop_cfg=LoopConfig(radius=10.0, time_gap=4.0, submap_points=4096,
+                                icp_score_threshold=0.5, max_sqrt_info=1.0),
+            pgo_cfg=PoseGraphConfig(max_keyframes=64, max_between=128, max_gps=8),
+            cfg=EngineConfig(loop_check_every=5, kf_cloud_points=1024),
+            device=cuda_device)
+
+    def drive(e, c0, c1):
+        stage = kitti_stager(e, seq, 8192, 5)
+        for c in range(c0, c1, 5):
+            e.process_chunk_deferred(*stage(c, 5), 0.1)
+        e.finish()
+
+    first = engine()
+    drive(first, 0, 30)
+    save_checkpoint(first, str(tmp_path / "ckpt.npz"))
+    drive(first, 30, 60)
+    restored = load_checkpoint(engine(), str(tmp_path / "ckpt.npz"))
+    drive(restored, 30, 60)
+    assert first.kf.n == restored.kf.n > 5
+    np.testing.assert_array_equal(np.stack(first.realtime_traj), np.stack(restored.realtime_traj))
+    np.testing.assert_array_equal(first.keyframe_poses(), restored.keyframe_poses())
+    assert first.loop_pairs == restored.loop_pairs

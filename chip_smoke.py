@@ -8,7 +8,7 @@ NVIDIA GPU — the quickest proof that the port still builds and runs there.
 Phases, each of which fails the script (non-zero exit) if it fails:
   1. the card's name and power limit (nvidia-smi); the two sim feeds start
      generating in two worker processes (they take ~1-2 minutes of host
-     time and are cached under build/), and the KITTI sequence of phase 7
+     time and are cached under build/), and the KITTI sequence of phase 8
      in its own worker processes;
   2. build every CUDA kernel of the package from ``fastliosam_tpu_torch/csrc``
      (one nvcc per source, all started together) into ``build/kernels/``;
@@ -22,12 +22,18 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      (where one exists), and its bound; then the gather experiment entry
      point (``fastliosam_tpu_torch.scripts.exp_gather``), the path of
      ``take_along_axis``, with its random-read ceiling probe; the row
-     gather (``gather_rows``), the association kernel (``merged_moments``)
-     and the map insert's kernel (``insert_claim``) are checked once the
+     gather (``gather_rows``), the association kernel (``merged_moments``,
+     merged3 and merged2 pools), the map insert's kernel (``insert_claim``)
+     and the cached-plane query (``query_cached``) are checked once the
      figure-8 feed is made: the gather on the loop closure's plane-refresh
-     reads of submaps around the engine's keyframes after 30 scans, the
-     other two on the engine's own 2^19-slot map after 20 scans (the
-     insert also on a tight table that drops points and on an evicted map);
+     reads of submaps around the engine's keyframes after 30 scans and on
+     the point-to-plane ICP's row reads of those submaps, the
+     association and the insert on the engine's own 2^19-slot map after 20
+     scans (the insert also on a tight table that drops points and on an
+     evicted map), the cached query on that map with its planes fitted
+     (8192 queries, 2 probes) and on the submaps' surfel maps (16,384
+     queries, 2^14 slots, 4 probes), plus ragged, all-masked, not-found
+     and tight-table queries;
   4. per-scan phase: ``SlamEngine.process`` over the figure-8 loop feed at
      the full width of the bench's loop-closing configuration (2048 x 16
      rays = 32,768 points per scan, 8192 iEKF points, a 2^19-slot map,
@@ -43,11 +49,18 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      scans by default, to keep the script inside its time), fixes through
      WGS84 geodesy, ``process_chunk`` with GPS off and on; with GPS on at
      least two GPS factors, a solve, and ATE < 2.0 m;
-  7. KITTI phase, the dataset entry point at the bench's width and depth
+  7. modes phase: the figure-8 feed at the same width with the other query
+     and loop-ICP modes: ``process`` per scan with the cached-plane query
+     and point-to-plane loop ICP, and ``process_chunk_deferred`` with the
+     merged2 query and the multi-start loop ICP of ``bench.py:
+     bench_kitti_rich``; each twice from ``reset()`` (replay bit for bit),
+     ATE < 0.10 m, more than 500 matches a scan from scan 3 on, a
+     verification;
+  8. KITTI phase, the dataset entry point at the bench's width and depth
      (``bench.py: bench_kitti_longrun``): ``drive_kitti`` over the
      1160-scan synthetic KITTI circuit read by the native reader (q16
      upload, chunk 5, deferred), with a loop audit against ground truth,
-     and the same run loop-free and with the raw float upload;
+     and the same run loop-free;
      ``save_results`` with its files checked;
      a checkpoint at scan 300 that a restored engine must continue over
      scans 300-400 bit for bit with the engine that saved it;
@@ -61,7 +74,9 @@ just after; each kernel must have launched on its path (the nearest
 neighbours and the row gather (the loop closure's plane refresh) on the
 loop-closing phases 4 and 5, the association and the insert on 4-6,
 all four on the KITTI long run and the localizer, take_along_axis on the
-experiment entry point). Phases 4-6 report the
+experiment entry point; in phase 7 the cached query, the insert, the row
+gather and the NN on the cached run and the association, the insert and
+the NN on the merged2 run). Phases 4-6 report the
 insert's, the association's and the row gather's launches per scan, and
 device operations per scan over a window traced with ``torch.profiler``
 (the last 50 scans of the replay in 4 and 5, the last 25 of the GPS-off
@@ -214,29 +229,44 @@ def _gather_bytes(idx_np, d, c, valid=None, idx_itemsize=None):
             + (n if valid is not None else 0) + n * d * 4)
 
 
-def check_gather(dev, seed: int, plane_sets):
+def check_gather(dev, seed: int, plane_sets, surfel_cfg):
     """The row gather against its plain version, bit for bit, at the shapes
     the main path gives it: the loop closure's plane refresh
     (``map/voxel_hash.py: _fit_planes`` on the throwaway map of
     ``loop/closure.py: _dst_surfel_map``), which reads the (2^14, 10)
     moments and the (2^14, 3) int32 voxel coordinates at the 16,384 int64
-    slots of the submap's insert (``plane_sets``, one set per submap); and
-    a ragged 1000 x 3 case with a found-mask and negative and out-of-range
-    indices. Each is timed over its sets beside the plain version and
-    (unmasked) ``torch.index_select`` (experiments A and B's shapes are
-    timed by the experiment entry point). Returns the record of the moment read (the
-    kernels line) and every case's record."""
+    slots of the submap's insert (``plane_sets``, one set per submap); the
+    point-to-plane ICP's row reads (``loop/icp.py: icp_align_p2pl``), which
+    read the submap (16,384, 3), its normals from ``query_planes`` on that
+    surfel map (``surfel_cfg``) and their 1-D int32 valid flags at the
+    int32 nearest-neighbour indices of a copy of the submap shifted by
+    (0.2, 0.2, 0) m; and a ragged 1000 x 3 case with a found-mask and
+    negative and out-of-range indices. Each is timed over its sets beside
+    the plain version and (unmasked) ``torch.index_select`` (experiments A
+    and B's shapes are timed by the experiment entry point). Returns the
+    record of the moment read with the p2pl reads' under ``at_p2pl_rows``
+    (the kernels line) and every case's record."""
     import torch
 
-    from fastliosam_tpu_torch.ops import gather_cuda
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import gather_cuda, nn_cuda
     from fastliosam_tpu_torch.utils.timing import device_ms
 
+    p2pl = []  # (dst, normals, nvalid, nn_idx) per submap
+    shift = torch.tensor([0.2, 0.2, 0.0], device=dev)
+    for *_, sm, dst, dmask in plane_sets:
+        nrm, _, nvalid = vh.query_planes(sm, surfel_cfg, dst, dmask)
+        nn_idx = nn_cuda.nearest_neighbors((dst + shift).contiguous(), dst, dmask)[0]
+        p2pl.append((dst, nrm, nvalid.to(torch.int32), nn_idx))
     rng = np.random.default_rng(seed)
     ragged = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(1000, 3),
                                            dtype=np.int64).astype(np.int32)).to(dev)
     cases = {  # name: [(table, idx, valid)] with fresh indices per set
-        "plane_moments": [(mom, sl, None) for mom, _, sl in plane_sets],
-        "plane_coords": [(crd, sl, None) for _, crd, sl in plane_sets],
+        "plane_moments": [(mom, sl, None) for mom, _, sl, *_ in plane_sets],
+        "plane_coords": [(crd, sl, None) for _, crd, sl, *_ in plane_sets],
+        "p2pl_points": [(dst, i, None) for dst, _, _, i in p2pl],
+        "p2pl_normals": [(nrm, i, None) for _, nrm, _, i in p2pl],
+        "p2pl_nvalid": [(nv, i, None) for _, _, nv, i in p2pl],
         "ragged": [(ragged, torch.from_numpy(rng.integers(-2000, 2000, size=1000)
                                              .astype(np.int32)).to(dev),
                     torch.from_numpy(rng.uniform(size=1000) > 0.3).to(dev))
@@ -256,7 +286,8 @@ def check_gather(dev, seed: int, plane_sets):
         library_ms = None
         if name != "ragged":
             # index_select raises on the slot C of unassigned points, so it
-            # reads the slots clamped to C - 1 beforehand: the same rows
+            # reads the slots clamped to C - 1 beforehand: the same rows (the
+            # nearest-neighbour indices are in range already)
             clamped = [(t, i.clamp(max=t.shape[0] - 1)) for t, i, _ in sets]
             library_ms = device_ms(lambda t, i: torch.index_select(t, 0, i), clamped)
         table, idx, val = sets[0]
@@ -273,8 +304,10 @@ def check_gather(dev, seed: int, plane_sets):
         print(f"  gather_rows {name} {tuple(table.shape)} x {idx.shape[0]} {idx.dtype}, "
               f"{len(sets)} sets: equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"index_select {lib}, bound {rec['bound_ms']:.5f} ms ({nbytes:.0f} HBM bytes)")
-    main = {k: records["plane_moments"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                     "bound_ms", "bound_by", "library_ms")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main = {k: records["plane_moments"][k] for k in keys}
+    main["at_p2pl_rows"] = {name: {k: records[name][k] for k in keys}
+                            for name in ("p2pl_points", "p2pl_normals", "p2pl_nvalid")}
     return main, records
 
 
@@ -283,27 +316,28 @@ def plane_refresh_sets(dev, engine, n_sets: int = 10):
     ``loop/closure.py: _dst_surfel_map`` makes them: the submap
     (``build_submap``) around each of up to ``n_sets`` of the engine's
     keyframes (from the middle of its store) inserted into a throwaway
-    2^14-slot map; ``(moments (2^14, 10), coords (2^14, 3), sl (16,384,)
-    int64)`` each, the tables after the insert and the slots it gave."""
-    from fastliosam_tpu_torch.loop.closure import build_submap
+    2^14-slot map. Returns ``(moments (2^14, 10), coords (2^14, 3), sl
+    (16,384,) int64, map, dst (16,384, 3), mask)`` for each: the tables
+    after the insert, the slots it gave, and the refreshed map with the
+    submap, the point-to-plane ICP's normal query; and that map's config."""
+    from fastliosam_tpu_torch.loop.closure import _dst_surfel_map, build_submap
     from fastliosam_tpu_torch.map import voxel_hash as vh
     from fastliosam_tpu_torch.ops import insert_cuda
 
     lc, kf = engine.loop_cfg, engine.kf
-    cfg = vh.VoxelMapConfig(capacity=1 << 14, voxel_size=lc.aniso_voxel, min_points=5)
     lo = max(0, (kf.n - n_sets) // 2)
-    out = []
+    out, cfg = [], None
     for centre in range(lo, min(kf.n, lo + n_sets)):
         dst, mask = build_submap(kf.clouds, kf.masks, engine.graph.poses,
                                  engine.graph.kf_valid, centre, lc)
         dst, mask = dst.contiguous(), mask.contiguous()
+        m, cfg = _dst_surfel_map(dst, mask, lc)
         empty = vh.make_map(cfg, dev)
         sl = insert_cuda.insert_claim(
             empty.fp, empty.coords, empty.moments, dst, mask, cfg.voxel_size,
             max(cfg.insert_probes, cfg.claim_probes), cfg.max_points_per_voxel)[2]
-        m, _ = vh.insert(empty, cfg, dst, mask, refresh_planes=False)
-        out.append((m.moments, m.coords, sl))
-    return out
+        out.append((m.moments, m.coords, sl, m, dst, mask))
+    return out, cfg
 
 
 def figure8_map(dev, feed, n_map_scans: int = 20, n_more: int = 10):
@@ -311,14 +345,32 @@ def figure8_map(dev, feed, n_map_scans: int = 20, n_more: int = 10):
     (``SlamEngine.process``, 2 probes), its config, the engine's poses of
     the first ``n_map_scans + n_more`` scans (a second run from
     ``reset()``, which replays the first bit for bit) and the plane-refresh
-    inputs of loop-closure submaps around its keyframes then
-    (``plane_refresh_sets``)."""
-    engine = make_engine(dev)
+    inputs of loop-closure submaps around its keyframes then with their
+    surfel maps' config (``plane_refresh_sets``)."""
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
+
+    engine = make_bench_engine(dev)
     run_engine(engine, feed, dev, n_map_scans)
     m = type(engine.odom.vmap)(*(t.clone() for t in engine.odom.vmap))
     run_engine(engine, feed, dev, n_map_scans + n_more)
     return (m, engine.map_cfg, np.stack(engine.realtime_traj).astype(np.float32),
-            plane_refresh_sets(dev, engine))
+            *plane_refresh_sets(dev, engine))
+
+
+def _scan_queries(dev, feed, traj, ks, seed: int, n: int = 8192):
+    """``n`` points of each scan ``k`` in ``ks`` at the engine's pose of
+    scan ``k`` (world frame, not deskewed), as its iEKF queries them."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in ks:
+        pose = torch.from_numpy(traj[k]).to(dev)
+        keep = np.nonzero(feed["mask"][k])[0]
+        pick = torch.from_numpy(np.sort(rng.choice(keep, n, replace=False))).to(dev)
+        xyz = torch.from_numpy(feed["xyz"][k]).to(dev)[pick] @ pose[:3, :3].T + pose[:3, 3]
+        out.append(xyz.contiguous())
+    return out
 
 
 def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
@@ -326,8 +378,10 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     engine's own 2^19-slot map after ``n_map_scans`` figure-8 scans
     (``figure8_map``), queried with 8192 points of each of its last
     ``reps`` scans at the engine's poses (world frame, not deskewed), in the
-    merged3 pools (3 per query). Timed over those fresh query sets beside
-    the plain version. Returns the record (the kernels line)."""
+    merged3 pools (3 per query) and the merged2 pools (2 per query). Each
+    is timed over those fresh query sets beside the plain version. Returns
+    the record of merged3 (the kernels line) with merged2's under
+    ``at_merged2``."""
     import torch
 
     from fastliosam_tpu_torch.core import voxel
@@ -336,51 +390,197 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
     from fastliosam_tpu_torch.utils.timing import device_ms
 
-    m, cfg, traj, _ = fig8
-    rng = np.random.default_rng(n_map_scans)
-    sets, nbytes = [], []
+    m, cfg, traj, *_ = fig8
     fp_np = m.fp.cpu().numpy()
-    for k in range(n_map_scans - reps, n_map_scans):
-        # scan k's points at the engine's pose of scan k, as its iEKF queries them
-        pose = torch.from_numpy(traj[k]).to(dev)
-        keep = np.nonzero(feed["mask"][k])[0]
-        pick = torch.from_numpy(np.sort(rng.choice(keep, 8192, replace=False))).to(dev)
-        xyz = torch.from_numpy(feed["xyz"][k]).to(dev)[pick] @ pose[:3, :3].T + pose[:3, 3]
-        coords0, pools = vh.merged3_pools(xyz, cfg.voxel_size)
-        mask = torch.ones(8192, dtype=torch.bool, device=dev)
-        sets.append((pools, coords0, mask))
-        # HBM bytes: the probed fingerprint sectors and the found rows'
-        # sectors (distinct), the coordinates and mask read, the output
-        h0 = voxel.hash_slot(pools, cfg.capacity).to(torch.int64).cpu().numpy().reshape(-1)
-        want = voxel.fingerprint(pools).cpu().numpy().reshape(-1)
-        cand = (h0[:, None] + np.arange(cfg.query_probes)) & (cfg.capacity - 1)
-        hit = fp_np[cand] == want[:, None]
-        found = cand[hit.any(1), hit[hit.any(1)].argmax(1)]
-        nbytes.append(sector_bytes(cand.reshape(-1), 1) + sector_bytes(found, 10)
-                      + pools.numel() * 4 + coords0.numel() * 4 + 8192 + 8192 * 13 * 4)
+    queries = _scan_queries(dev, feed, traj, range(n_map_scans - reps, n_map_scans),
+                            seed=n_map_scans)
     args = (m.fp, m.moments)
     tail = (cfg.voxel_size, cfg.query_probes)
-    found_share = []
-    for pools, coords0, mask in sets:
-        got = assoc_cuda.merged_moments_cuda(*args, pools, coords0, mask, *tail)
-        want = assoc_cuda.merged_moments_ref(*args, pools, coords0, mask, *tail)
+    recs = {}
+    for mode, pools_fn in (("merged3", vh.merged3_pools), ("merged2", vh.merged2_pools)):
+        sets, nbytes = [], []
+        for xyz in queries:
+            coords0, pools = pools_fn(xyz, cfg.voxel_size)
+            mask = torch.ones(8192, dtype=torch.bool, device=dev)
+            sets.append((pools, coords0, mask))
+            # HBM bytes: the probed fingerprint sectors and the found rows'
+            # sectors (distinct), the coordinates and mask read, the output
+            h0 = voxel.hash_slot(pools, cfg.capacity).to(torch.int64).cpu().numpy().reshape(-1)
+            want = voxel.fingerprint(pools).cpu().numpy().reshape(-1)
+            cand = (h0[:, None] + np.arange(cfg.query_probes)) & (cfg.capacity - 1)
+            hit = fp_np[cand] == want[:, None]
+            found = cand[hit.any(1), hit[hit.any(1)].argmax(1)]
+            nbytes.append(sector_bytes(cand.reshape(-1), 1) + sector_bytes(found, 10)
+                          + pools.numel() * 4 + coords0.numel() * 4 + 8192 + 8192 * 13 * 4)
+        found_share = []
+        for pools, coords0, mask in sets:
+            got = assoc_cuda.merged_moments_cuda(*args, pools, coords0, mask, *tail)
+            want = assoc_cuda.merged_moments_ref(*args, pools, coords0, mask, *tail)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"merged_moments {mode}: kernel and plain version differ")
+            found_share.append(float((got[:, 0] > 0).float().mean()))
+        ms = device_ms(lambda p, c, k: assoc_cuda.merged_moments_cuda(*args, p, c, k, *tail),
+                       sets)
+        plain_ms = device_ms(
+            lambda p, c, k: assoc_cuda.merged_moments_ref(*args, p, c, k, *tail), sets)
+        bound_ms = float(np.mean(nbytes)) / H100_BYTES_PER_S * 1e3
+        n_pools = sets[0][0].shape[0]
+        print(f"  merged_moments {mode} (2^{cfg.capacity.bit_length() - 1}-slot map after "
+              f"{n_map_scans} figure-8 scans) 8192 x {n_pools} pools x "
+              f"{cfg.query_probes} probes, {reps} query sets: equal, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({np.mean(nbytes):.0f} HBM bytes), "
+              f"voxels found {np.mean(found_share):.1%} of queries; "
+              f"map holds {int((fp_np != 0).sum())} voxels")
+        recs[mode] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "bytes", "library_ms": None, "pools": n_pools,
+                      "library_note": "no single PyTorch call probes a hash table and "
+                                      "merges moments"}
+    return dict(recs["merged3"], at_merged2=recs["merged2"])
+
+
+def _cached_map(m, cfg):
+    """The map with the cached plane of every occupied voxel fitted, as the
+    cached query mode's insert keeps it (``map/voxel_hash.py:
+    _fit_planes``)."""
+    import torch
+
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    occ = torch.nonzero(m.fp != 0)[:, 0]
+    nrm, dd, pv = vh._fit_planes(m, cfg, occ)
+    normal, d, plane_valid = m.normal.clone(), m.d.clone(), m.plane_valid.clone()
+    normal[occ], d[occ], plane_valid[occ] = nrm, dd, pv
+    return m._replace(normal=normal, d=d, plane_valid=plane_valid)
+
+
+def _query_bytes(fp, cfg, xyz, mask) -> int:
+    """HBM bytes the cached-plane query must move: the distinct fingerprint
+    sectors of the live queries' probes, the sectors of the rows read
+    (normal, d and plane_valid: three arrays; slot 0 for a miss), the xyz
+    and mask read and the 17-byte output rows."""
+    import torch
+
+    from fastliosam_tpu_torch.core import voxel
+    from fastliosam_tpu_torch.ops import query_cuda
+    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
+
+    live = mask.cpu().numpy()
+    coords = voxel.voxel_coords(xyz, cfg.voxel_size)
+    h0 = voxel.hash_slot(coords, cfg.capacity).to(torch.int64).cpu().numpy()[live]
+    cand = (h0[:, None] + np.arange(cfg.query_probes)) & (cfg.capacity - 1)
+    slots, _ = query_cuda.find_slots_ref(fp, coords, mask, cfg.query_probes)
+    rows = np.clip(slots.cpu().numpy(), 0, None)
+    n = len(live)
+    return (sector_bytes(cand.reshape(-1), 1) + sector_bytes(rows, 3) + 2 * sector_bytes(rows, 1)
+            + n * 12 + n + n * 17)
+
+
+def check_query(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
+    """The cached-plane query kernel against its plain version, bit for bit
+    (normal, d and valid), at the two shapes of the main path: the cached
+    mode's odometry, 8192 points of each of the engine map's last ``reps``
+    scans (as ``check_assoc``) against the 2^19-slot figure-8 map with
+    every occupied voxel's plane fitted, 2 probes; and the point-to-plane
+    ICP's normals, the 16,384 points of each plane-refresh submap against
+    its own 2^14-slot surfel map, 4 probes. Also ragged (8191 + 77 points,
+    every 13th masked), all queries masked, queries that find nothing
+    (slot 0's row, never valid), and a tight 2^12 table that dropped
+    points. Each main shape is timed beside the plain version and the
+    plain probe with three ``index_select`` row reads. Returns the record
+    of the odometry shape (the kernels line) with the p2pl shape's under
+    ``at_p2pl_shape``."""
+    import torch
+
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import query_cuda
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    m, cfg, traj, plane_sets, surfel_cfg = fig8
+    mc = _cached_map(m, cfg)
+    queries = _scan_queries(dev, feed, traj, range(n_map_scans - reps, n_map_scans),
+                            seed=n_map_scans + 1)
+    ones = torch.ones(8192, dtype=torch.bool, device=dev)
+    shapes = {
+        "odometry": (mc, cfg, [(xyz, ones) for xyz in queries]),
+        "p2pl": (None, surfel_cfg, [(sm, dst, dmask) for *_, sm, dst, dmask in plane_sets]),
+    }
+
+    def args_of(name, item):
+        m_, c_, _ = shapes[name]
+        if name == "odometry":
+            xyz, mask = item
+            return (m_.fp, m_.normal, m_.d, m_.plane_valid, xyz, mask, c_.voxel_size,
+                    c_.query_probes)
+        sm, dst, dmask = item
+        return (sm.fp, sm.normal, sm.d, sm.plane_valid, dst, dmask, c_.voxel_size,
+                c_.query_probes)
+
+    def compare(name, args):
+        got = query_cuda.query_cached_cuda(*args)
+        want = query_cuda.query_cached_ref(*args)
         torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError("merged_moments: kernel and plain version differ")
-        found_share.append(float((got[:, 0] > 0).float().mean()))
-    ms = device_ms(lambda p, c, k: assoc_cuda.merged_moments_cuda(*args, p, c, k, *tail), sets)
-    plain_ms = device_ms(lambda p, c, k: assoc_cuda.merged_moments_ref(*args, p, c, k, *tail),
-                         sets)
-    bound_ms = float(np.mean(nbytes)) / H100_BYTES_PER_S * 1e3
-    print(f"  merged_moments (2^{cfg.capacity.bit_length() - 1}-slot map after {n_map_scans} "
-          f"figure-8 scans) 8192 x 3 pools x "
-          f"{cfg.query_probes} probes, {reps} query sets: equal, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({np.mean(nbytes):.0f} HBM bytes), "
-          f"voxels found {np.mean(found_share):.1%} of queries; "
-          f"map holds {int((fp_np != 0).sum())} voxels")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None,
-            "library_note": "no single PyTorch call probes a hash table and merges moments"}
+        same = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+                and torch.equal(got[2], want[2]))
+        if not same:
+            raise AssertionError(f"query_cached {name}: kernel and plain version differ")
+        return got
+
+    def plain_probe_index_select(fp, normal, d, pv, xyz, mask, vs, probes):
+        from fastliosam_tpu_torch.core.voxel import voxel_coords
+
+        slots, _ = query_cuda.find_slots_ref(fp, voxel_coords(xyz, vs), mask, probes)
+        sl = slots.clamp(min=0)
+        return (torch.index_select(normal, 0, sl), torch.index_select(d, 0, sl),
+                torch.index_select(pv, 0, sl))
+
+    recs = {}
+    for name, (_, c_, items) in shapes.items():
+        sets = [args_of(name, it) for it in items]
+        valid_share = [float(compare(name, a)[2].float().mean()) for a in sets]
+        ms = device_ms(query_cuda.query_cached_cuda, sets)
+        plain_ms = device_ms(query_cuda.query_cached_ref, sets)
+        composed_ms = device_ms(plain_probe_index_select, sets)
+        nbytes = float(np.mean([_query_bytes(a[0], c_, a[4], a[5]) for a in sets]))
+        recs[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                      "library_ms": None,
+                      "library_note": "none: no PyTorch call probes a hash table",
+                      "plain_probe_and_index_select_ms": composed_ms,
+                      "n": int(sets[0][4].shape[0]), "capacity": c_.capacity,
+                      "probes": c_.query_probes, "sets": len(sets), "bytes": nbytes,
+                      "valid_share": float(np.mean(valid_share))}
+        print(f"  query_cached {name}: {recs[name]['n']} queries x 2^"
+              f"{c_.capacity.bit_length() - 1} slots, {c_.query_probes} probes, {len(sets)} "
+              f"sets: equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, plain probe + 3 "
+              f"index_select {composed_ms:.4f} ms, bound {recs[name]['bound_ms']:.5f} ms "
+              f"({nbytes:.0f} HBM bytes), valid {np.mean(valid_share):.1%}")
+
+    # the edge cases, bit for bit
+    xyz0 = queries[0]
+    far = (torch.full((77, 3), 900.0, device=dev)
+           + torch.arange(77, device=dev, dtype=torch.float32)[:, None])
+    ragged = torch.cat([xyz0[:8191], far]).contiguous()
+    rmask = torch.ones(len(ragged), dtype=torch.bool, device=dev)
+    rmask[::13] = False
+    got = compare("ragged", args_of("odometry", (ragged, rmask)))
+    if bool(got[2][-77:].any()) or not torch.equal(got[0][-77:], mc.normal[0].expand(77, 3)):
+        raise AssertionError("query_cached: a query that finds nothing must read slot 0, "
+                             "not valid")
+    compare("all masked", args_of("odometry", (xyz0, torch.zeros_like(ones))))
+    compare("not found", args_of("odometry", (far.contiguous(), ones[:77])))
+    tight_cfg = vh.VoxelMapConfig(capacity=1 << 12, voxel_size=0.5, min_points=5,
+                                  query_probes=4)
+    tight, dropped = vh.insert(vh.make_map(tight_cfg, dev), tight_cfg,
+                               torch.cat(queries[:2]).contiguous(), torch.cat([ones, ones]))
+    if int(dropped) == 0:
+        raise AssertionError("query_cached tight case: the 2^12 table must overflow")
+    compare("tight 2^12", (tight.fp, tight.normal, tight.d, tight.plane_valid, xyz0, ones,
+                           0.5, 4))
+    print(f"  query_cached: equal on the ragged, all-masked, not-found and tight 2^12 "
+          f"({int(dropped)} of 16384 points dropped) cases")
+    return dict(recs["odometry"], at_p2pl_shape=recs["p2pl"])
 
 
 def _downsampled_world(feed, k, pose, dev, budget: int = 8192):
@@ -440,7 +640,7 @@ def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     from fastliosam_tpu_torch.ops import insert_cuda
     from fastliosam_tpu_torch.utils.timing import device_ms
 
-    m, cfg, traj, _ = fig8
+    m, cfg, traj, *_ = fig8
     maxp, vs = cfg.max_points_per_voxel, cfg.voxel_size
     rounds = max(cfg.insert_probes, cfg.claim_probes)
     sets = [_downsampled_world(feed, k, traj[k], dev)
@@ -627,31 +827,6 @@ def load_feed(path: str) -> dict:
 # ---------------------------------------------------------------------------
 # engine phases
 # ---------------------------------------------------------------------------
-def make_engine(dev, max_kf: int = 128, max_between: int = 256, max_gps: int = 64,
-                chunk: int = 5):
-    """The bench's pipeline configuration (``bench.py: make_engine_for``)."""
-    from fastliosam_tpu_torch.loop import LoopConfig
-    from fastliosam_tpu_torch.map import VoxelMapConfig
-    from fastliosam_tpu_torch.odom import OdomConfig
-    from fastliosam_tpu_torch.pgo import PoseGraphConfig
-    from fastliosam_tpu_torch.runtime import EngineConfig, SlamEngine
-
-    return SlamEngine(
-        odom_cfg=OdomConfig(point_filter_num=1, blind=1.0, filter_size_surf=0.5,
-                            num_ds_points=8192, det_range=150.0, evict_every=10_000,
-                            query_mode="merged3"),
-        map_cfg=VoxelMapConfig(capacity=1 << 19, voxel_size=0.5, min_points=5,
-                               query_probes=2, insert_probes=2, claim_probes=2),
-        loop_cfg=LoopConfig(radius=10.0, time_gap=4.0, num_submap_keyframes=5,
-                            voxel_res=0.3, submap_points=16384),
-        pgo_cfg=PoseGraphConfig(max_keyframes=max_kf, max_between=max_between,
-                                max_gps=max_gps),
-        cfg=EngineConfig(keyframe_threshold=1.0, loop_check_every=chunk,
-                         kf_cloud_points=4096, kf_cloud_voxel=0.3),
-        device=dev,
-    )
-
-
 def _start(engine, feed, dev):
     """reset() at the feed's initial state; the feed staged on the card (as
     the bench stages its chunks)."""
@@ -789,7 +964,8 @@ def run_chunks(engine, feed, dev, chunk: int, deferred: bool, fixes=None, profil
         total, reads = time.perf_counter() - t0, host_reads() - r0
     out = {"total_s": total, "scans": n, "chunks": n // chunk, "host_reads": reads,
            "loop_and_solve_reads": sum(probe.reads.values()),
-           "solve_s": probe.s["_solve"], "verify_s": probe.s["_launch_verify"]}
+           "solve_s": probe.s["_solve"], "verify_s": probe.s["_launch_verify"],
+           "verify_syncs": probe.verify_reads, "verify_nn": probe.verify_nn}
     if prof is not None:
         prof.__exit__(None, None, None)
         out["prof"], out["prof_wall_s"] = prof, time.perf_counter() - t_prof
@@ -843,10 +1019,11 @@ def _fail(phase, checks):
 def per_scan_phase(dev, feed):
     import torch
 
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
     from fastliosam_tpu_torch.utils import host_read, host_reads, reset_host_reads
 
     n_scans = len(feed["stamps"])
-    engine = make_engine(dev)
+    engine = make_bench_engine(dev)
     run_engine(engine, feed, dev, min(12, n_scans))  # warm-up: allocator, cuBLAS
     reset_host_reads()
     timing, launches = _launch_counts(lambda: run_engine(engine, feed, dev, n_scans))
@@ -903,8 +1080,10 @@ def profile_phase(dev, feed, profile_scans: int):
     """An extra per-scan run whose last ``profile_scans`` scans run under
     ``torch.profiler``; it comes after every other phase (tracing slows the
     host for a while after it ends) and touches no launch count read."""
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
+
     n_scans = len(feed["stamps"])
-    engine = make_engine(dev)
+    engine = make_bench_engine(dev)
     run_engine(engine, feed, dev, min(12, n_scans))  # warm-up
     start = max(0, n_scans - profile_scans)
     run = run_engine(engine, feed, dev, n_scans, profile_from=start)
@@ -913,7 +1092,9 @@ def profile_phase(dev, feed, profile_scans: int):
 
 def chunked_phase(dev, feed, chunk: int = 5):
     """process_chunk_deferred over the loop feed, twice from reset()."""
-    engine = make_engine(dev, chunk=chunk)
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
+
+    engine = make_bench_engine(dev, chunk=chunk)
     run, launches = _launch_counts(
         lambda: run_chunks(engine, feed, dev, chunk, deferred=True))
     first = (np.stack(engine.realtime_traj), list(engine.loop_pairs))
@@ -951,6 +1132,83 @@ def chunked_phase(dev, feed, chunk: int = 5):
     return result
 
 
+# the other query and loop-ICP modes: each run's engine configuration over
+# the bench's pipeline, its path, and the kernels that path must launch
+MODES = {
+    "cached_p2pl": (dict(query_mode="cached"), dict(icp_method="p2pl"), "per_scan",
+                    ("query_cached", "insert_claim", "gather_rows", "nearest_neighbors")),
+    "merged2_multistart": (dict(query_mode="merged2"),
+                           dict(icp_multistart=5, multistart_step=4.0, multistart_iters=12),
+                           "chunked", ("merged_moments", "insert_claim", "nearest_neighbors")),
+}
+
+
+def modes_phase(dev, feed, chunk: int = 5) -> dict:
+    """The other query and loop-ICP modes over the figure-8 feed at the
+    bench's width: (a) ``process`` per scan with the cached-plane query and
+    point-to-plane loop ICP; (b) ``process_chunk_deferred`` (chunk 5) with
+    the merged2 query and the multi-start loop ICP of ``bench.py:
+    bench_kitti_rich`` (5 starts 4 m apart, 12 coarse iterations). Each
+    run goes twice from ``reset()``; gates: every pose finite, more than
+    500 matches in every scan after scan 2 (from scan 3 on: a cached plane
+    needs 5 points in one voxel, so scan 2 against the map of scans 0-1
+    matches only tens of points), a verification, a bit-identical replay,
+    the path's kernels launched and ATE < 0.10 m."""
+    import torch
+
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
+    from fastliosam_tpu_torch.utils import host_read
+
+    out = {}
+    for name, (odom_kw, loop_kw, path, kernels) in MODES.items():
+        engine = make_bench_engine(dev, chunk=chunk)
+        engine.odom_cfg = engine.odom_cfg._replace(**odom_kw)
+        engine.loop_cfg = engine.loop_cfg._replace(**loop_kw)
+        engine.reset()
+        if path == "per_scan":
+            def drive():
+                return run_engine(engine, feed, dev, len(feed["stamps"]))
+        else:
+            def drive():
+                return run_chunks(engine, feed, dev, chunk, deferred=True)
+        run, launches = _launch_counts(drive)
+        first = (np.stack(engine.realtime_traj), list(engine.loop_pairs))
+        matched = host_read(torch.stack(engine.match_counts))
+        n_scans = len(engine.realtime_traj)
+        n_verify = len(run["verify_syncs"])
+        result = {
+            "path": path, "odom": odom_kw, "loop": loop_kw, "scans": n_scans,
+            "scans_per_s": n_scans / run["total_s"], "keyframes": engine.kf.n,
+            "loops": len(engine.loop_pairs), "verifications": len(engine.loop_attempts),
+            "solves": engine.solve_count, "ate_m": _ate(engine, feed),
+            "launches": launches,
+            "launches_per_scan": {k: v / n_scans for k, v in launches.items()},
+            "host_syncs_per_verification": (float(np.mean(run["verify_syncs"]))
+                                            if n_verify else None),
+            "nn_launches_per_verification": (float(np.mean(run["verify_nn"]))
+                                             if n_verify else None),
+            "verify_ms_each": 1e3 * run["verify_s"] / n_verify if n_verify else None,
+            "matched_first_scans": matched[:5].tolist(),
+            "min_matched_after_scan2": int(matched[3:].min()),
+            "loop_pairs": first[1],
+        }
+        finite = bool(np.all(np.isfinite(first[0]))) and bool(
+            np.all(np.isfinite(engine.keyframe_poses())))
+        drive()  # the replay
+        result["replay_bit_identical"] = _replay(engine, first)
+        print(f"  {name}: " + json.dumps(result))
+        _fail(f"modes phase, {name}", {
+            "every pose finite": finite,
+            "n_matched > 500 after scan 2 (scans 3 on)": result["min_matched_after_scan2"] > 500,
+            "at least one verification": result["verifications"] >= 1,
+            "replay bit-identical": result["replay_bit_identical"],
+            ", ".join(kernels) + " launched": min(launches[k] for k in kernels) > 0,
+            "ATE < 0.10 m": result["ate_m"] < 0.10,
+        })
+        out[name] = result
+    return out
+
+
 def gps_fixes(feed, anchor=(22.3193, 114.1694, 10.0)):
     """The corridor's world-frame fixes as GpsFix records through WGS84
     geodesy from the bench's anchor (``bench.py: _fixes_from_data``)."""
@@ -970,7 +1228,9 @@ def gps_fixes(feed, anchor=(22.3193, 114.1694, 10.0)):
 def gps_phase(dev, feed, chunk: int = 5):
     """The bench's corridor (``bench.py: bench_gps_corridor``): process_chunk
     with GPS off, then on with the bench's GPS configuration."""
-    engine = make_engine(dev, max_kf=256, max_between=512, max_gps=256, chunk=chunk)
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
+
+    engine = make_bench_engine(dev, max_kf=256, max_between=512, max_gps=256, chunk=chunk)
     n_chunks = len(feed["stamps"]) // chunk
     # the GPS-off run's last 5 chunks are traced (no solve runs there)
     off, launches_off = _launch_counts(
@@ -1018,51 +1278,23 @@ def gps_phase(dev, feed, chunk: int = 5):
 def kitti_feed() -> tuple[str, float]:
     """The bench's KITTI_SYNTH v2 (``bench.py: _ensure_longrun_dataset``):
     ``make_kitti_synth.generate(root, "00", 1160)``, 2048 x 16 rays to
-    50 m, written as KITTI .bin files under build/ (kept when complete).
-    Builds the native reader first. Returns the root and the seconds it
-    took."""
+    50 m, written as KITTI .bin files under build/ (kept when complete;
+    ``scripts/exp_loop_trust.py: ensure_longrun_dataset``). Builds the
+    native reader first. Returns the root and the seconds it took."""
     import os
 
     from fastliosam_tpu_torch.io.native import native_available
-    from fastliosam_tpu_torch.scripts import make_kitti_synth
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import ensure_longrun_dataset
 
     t0 = time.perf_counter()
-    # 4 worker processes at nice 10, which they inherit from this thread:
-    # they leave the card's feeder process and the machine's own services
-    # their cores (6-7 generators busy from the start took an 8-core host
-    # down twice)
+    # exp_loop_trust.GEN_WORKERS processes at nice 10, which they inherit
+    # from this thread: they leave the card's feeder process and the
+    # machine's own services their cores (6-7 generators busy from the
+    # start took an 8-core host down twice)
     os.nice(10)
     native_available()
-    root = ROOT / "build" / f"kitti_synth_{KITTI_SCANS}"
-    done = root / "poses" / "00.txt"
-    if not done.exists():
-        make_kitti_synth.generate(str(root), "00", n_scans=KITTI_SCANS, progress=False,
-                                  workers=4)
-    return str(root), time.perf_counter() - t0
-
-
-def make_longrun_engine(dev):
-    """The bench's circuit long-run engine (``bench.py:
-    _make_longrun_engine``): the loop-closing pipeline of ``make_engine``
-    with FoV-sliding eviction (det_range 60 m every 50 scans), 1024
-    keyframes / 2048 between / 64 GPS, LM 8 iterations, chain-aware GNC on
-    loop factors, loops accepted below fitness 0.5 with information capped
-    at 1 m."""
-    from fastliosam_tpu_torch.loop import LoopConfig
-    from fastliosam_tpu_torch.odom import OdomConfig
-    from fastliosam_tpu_torch.pgo import PoseGraphConfig
-
-    engine = make_engine(dev)
-    engine.odom_cfg = OdomConfig(point_filter_num=1, blind=1.0, filter_size_surf=0.5,
-                                 num_ds_points=8192, det_range=60.0, evict_every=50,
-                                 query_mode="merged3")
-    engine.pgo_cfg = PoseGraphConfig(max_keyframes=1024, max_between=2048, max_gps=64,
-                                     lm_iters=8, loop_gnc_barc=2.0, gnc_hop_trans_var=0.1)
-    engine.loop_cfg = LoopConfig(radius=10.0, time_gap=4.0, num_submap_keyframes=5,
-                                 voxel_res=0.3, submap_points=16384, icp_score_threshold=0.5,
-                                 max_sqrt_info=1.0)
-    engine.reset()  # the stores and the graph at the new capacities
-    return engine
+    root = ensure_longrun_dataset("canyon")
+    return root, time.perf_counter() - t0
 
 
 def _finite(engine) -> bool:
@@ -1070,46 +1302,26 @@ def _finite(engine) -> bool:
                 and np.all(np.isfinite(engine.keyframe_poses())))
 
 
-def loop_audit(engine, seq) -> list:
-    """Each accepted loop against ground truth: the translation error of
-    its measured relative pose (``t_err``), the true distance between the
-    two keyframes and the error left after the solve."""
-    gt = seq.gt_poses()
-    times = np.asarray(seq.times, np.float64)
-    idx = np.clip(np.searchsorted(times, engine.keyframe_stamps().astype(np.float64)), 0,
-                  len(times) - 1)
-    kf = engine.keyframe_poses()
-    out = []
-    for (q, c), rel, fit in zip(engine.loop_pairs, engine.loop_rels, engine.loop_fitness):
-        true = np.linalg.inv(gt[idx[q]]) @ gt[idx[c]]
-        solved = np.linalg.inv(kf[q]) @ kf[c]
-        out.append({"pair": [q, c], "fitness": fit,
-                    "t_err_m": float(np.linalg.norm(rel[:3, 3] - true[:3, 3])),
-                    "true_dist_m": float(np.linalg.norm(true[:3, 3])),
-                    "solved_err_m": float(np.linalg.norm(solved[:3, 3] - true[:3, 3]))})
-    return out
-
-
 def kitti_longrun_phase(dev, root: str, chunk: int = 5):
     """``drive_kitti`` over the whole sequence at the bench's width and
     depth (``bench.py: bench_kitti_longrun``), q16 upload: the bench's
     configuration, then the same run loop-free (the odometry alone, the
-    radius of loop candidates set to 0), then the bench's configuration
-    with the raw float upload (``upload="f32"``: inputs that differ from
-    q16's by at most 1/512 m, which shows how far the accepted loops move
-    the result). Gates: every pose finite, the loop-free realtime ATE <=
-    10 m (JAX on a TPU: 3.56 m) and the bench configuration's <= 20 m
-    (its loop trust is chaotic on this feed: the JAX engine gives 3.35 m
-    on a TPU and 7.41 m on the CPU, and 31 m with the spec's 35 m radius;
-    PERF.md), every kernel of the path launched."""
+    radius of loop candidates set to 0). Gates: every pose finite, the
+    loop-free realtime ATE <= 10 m (JAX on a TPU: 3.56 m) and, as a
+    regression guard, the bench configuration's <= 20 m (the 10 m target
+    is unmet: ROADMAP Queue 3 fault 1; its loop trust is chaotic on this
+    feed: the JAX engine gives 3.35 m on a TPU and 7.41 m on the CPU, and
+    31 m with the spec's 35 m radius; PERF.md), every kernel of the path
+    launched."""
     from fastliosam_tpu_torch.io import KittiSequence
     from fastliosam_tpu_torch.io.native import native_available
     from fastliosam_tpu_torch.runtime.drivers import drive_kitti
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import loop_audit, make_longrun_engine
     from fastliosam_tpu_torch.utils import host_reads, reset_host_reads
 
     if not native_available():
         raise AssertionError("KITTI phase: the native reader did not build (g++)")
-    engine = make_longrun_engine(dev)
+    engine = make_longrun_engine(device=dev)
     reset_host_reads()
     out, launches = _launch_counts(lambda: drive_kitti(
         engine, root, "00", scan_capacity=32768, chunk=chunk, progress=False))
@@ -1119,31 +1331,26 @@ def kitti_longrun_phase(dev, root: str, chunk: int = 5):
                   loop_audit=loop_audit(engine, KittiSequence(root, "00")),
                   host_syncs_per_chunk=host_reads() / -(-n // chunk), launches=launches,
                   launches_per_scan={k: v / n for k, v in launches.items()})
-    loop_free = make_longrun_engine(dev)
+    loop_free = make_longrun_engine(device=dev)
     loop_free.loop_cfg = loop_free.loop_cfg._replace(radius=0.0)
     result["loop_free"] = drive_kitti(loop_free, root, "00", scan_capacity=32768, chunk=chunk,
                                       progress=False)
-    f32 = make_longrun_engine(dev)
-    result["f32_upload"] = dict(
-        drive_kitti(f32, root, "00", scan_capacity=32768, chunk=chunk, upload="f32",
-                    progress=False),
-        verifications=len(f32.loop_attempts))
     print("  " + json.dumps(result))
-    lf, fl = result["loop_free"], result["f32_upload"]
+    lf = result["loop_free"]
     slid = [a for a in result["loop_audit"] if a["t_err_m"] > 5.0]
     print(f"  long-run: {out['scans_per_sec']} scans/s, ATE {out.get('ate_m')} m, keyframe ATE "
           f"{out.get('kf_ate_m')} m, RPE(1 s) {out.get('rpe_1s_m')} m, {out['n_loops']} loops "
           f"({len(slid)} off by more than 5 m against ground truth), {out['n_keyframes']} "
           f"keyframes, {out['n_solves']} solves; loop-free {lf['scans_per_sec']} scans/s, ATE "
-          f"{lf.get('ate_m')} m, keyframe ATE {lf.get('kf_ate_m')} m; f32 upload ATE "
-          f"{fl.get('ate_m')} m, {fl['n_loops']} loops of {fl['verifications']} verifications "
+          f"{lf.get('ate_m')} m, keyframe ATE {lf.get('kf_ate_m')} m "
           f"(accuracy reference, JAX engine on a TPU: ATE 3.3519 m, keyframe ATE 3.2462 m, "
           f"2 loops, 574 keyframes; loop-free 3.56 m)")
     _fail("KITTI long-run", {
-        "every pose finite": _finite(engine) and _finite(loop_free) and _finite(f32),
+        "every pose finite": _finite(engine) and _finite(loop_free),
         "ground truth read": "ate_m" in out and "ate_m" in lf,
         "loop-free ATE <= 10 m": lf.get("ate_m", np.inf) <= 10.0,
-        "ATE <= 20 m": out.get("ate_m", np.inf) <= 20.0,
+        "ATE <= 20 m (regression guard; the 10 m target is unmet (ROADMAP Queue 3 fault 1))":
+            out.get("ate_m", np.inf) <= 20.0,
         "at least one verification": result["verifications"] >= 1,
         "nearest_neighbors, gather_rows, merged_moments and insert_claim launched":
             min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments",
@@ -1212,17 +1419,18 @@ def resume_phase(dev, root: str, ckpt: Path, split: int = 300, end: int = 400, c
     from fastliosam_tpu_torch.io import KittiSequence
     from fastliosam_tpu_torch.runtime import load_checkpoint, save_checkpoint
     from fastliosam_tpu_torch.runtime.drivers import kitti_stager
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_longrun_engine
 
     seq = KittiSequence(root, "00")
     dt = float(np.median(np.diff(np.asarray(seq.times, np.float64))))
     t0 = time.perf_counter()
 
     def run():
-        first = make_longrun_engine(dev)
+        first = make_longrun_engine(device=dev)
         _drive_span(first, kitti_stager(first, seq, 32768, chunk), 0, split, chunk, dt)
         save_checkpoint(first, str(ckpt))
         _drive_span(first, kitti_stager(first, seq, 32768, chunk), split, end, chunk, dt)
-        restored = load_checkpoint(make_longrun_engine(dev), str(ckpt))
+        restored = load_checkpoint(make_longrun_engine(device=dev), str(ckpt))
         _drive_span(restored, kitti_stager(restored, seq, 32768, chunk), split, end, chunk, dt)
         return first, restored
 
@@ -1569,9 +1777,10 @@ def main(argv=None) -> int:
     with geometry_precision():
         print("kernel phase, row gather, association and insert (on the figure-8 map):")
         fig8_map = figure8_map(dev, fig8)
-        kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, fig8_map[3])
+        kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, *fig8_map[3:])
         kernels["merged_moments"] = check_assoc(dev, fig8, fig8_map)
         kernels["insert_claim"] = check_insert(dev, fig8, fig8_map)
+        kernels["query_cached"] = check_query(dev, fig8, fig8_map)
         del fig8_map
         print("per-scan phase (SlamEngine.process):")
         per_scan = per_scan_phase(dev, fig8)
@@ -1579,6 +1788,8 @@ def main(argv=None) -> int:
         chunked = chunked_phase(dev, fig8, args.chunk)
         print(f"GPS phase (corridor, SlamEngine.process_chunk, chunk {args.chunk}):")
         gps = gps_phase(dev, corridor, args.chunk)
+        print("modes phase (cached + point-to-plane per scan; merged2 + multi-start chunked):")
+        modes = modes_phase(dev, fig8, args.chunk)
         t0 = time.perf_counter()
         kitti_root, kitti_s = kitti_job.result()
         kitti_pool.shutdown()
@@ -1592,6 +1803,7 @@ def main(argv=None) -> int:
 
     paths = {"per_scan": per_scan["launches"], "chunked": chunked["launches"],
              "gps": gps["launches"], "exp_gather": exp_launches,
+             **{f"modes_{k}": r["launches"] for k, r in modes.items()},
              "kitti_longrun": kitti["longrun"]["launches"],
              "kitti_resume": kitti["resume"]["launches"],
              "kitti_localize": kitti["localize"]["launches"]}
@@ -1615,7 +1827,7 @@ def main(argv=None) -> int:
         args.out.write_text(json.dumps(
             {"card": card_line(), "kernels": line["kernels"], "gather_cases": gather_cases,
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
-             "kitti": kitti,
+             "modes": modes, "kitti": kitti,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))
     print(json.dumps(line))

@@ -19,12 +19,16 @@ loop detection, ICP verification, the LM/PCG pose-graph solve, the
 marginal covariance and the WGS84 geodesy — and the user's entry point
 around it: the KITTI and generic-directory readers with the native
 threaded decoder, ``drive_kitti``, result export, checkpoint/resume, the
-map localizer and the ``run_slam`` / ``localize`` scripts. Every TPU
-(Pallas) kernel in the repository has a hand-written CUDA counterpart:
-the fused nearest-neighbour search (``csrc/nn.cu``), the row gather
-(``csrc/gather.cu``: the loop closure's plane refresh), the association's
-probe-gather-merge (``csrc/assoc.cu``), the map insert's probe-and-claim
-rounds (``csrc/insert.cu``) and the 2-D ``take_along_axis`` of the gather
+map localizer and the ``run_slam`` / ``localize`` / ``exp_loop_trust``
+scripts; every plane-query mode (``merged``, ``merged2``, ``merged3``,
+``cached``) and every loop-ICP mode (point-to-point, point-to-plane,
+multi-start). Every TPU (Pallas) kernel in the repository has a
+hand-written CUDA counterpart: the fused nearest-neighbour search
+(``csrc/nn.cu``), the row gather (``csrc/gather.cu``: the plane refresh,
+the point-to-plane ICP's reads), the association's probe-gather-merge
+(``csrc/assoc.cu``), the cached-plane query's probe and read
+(``csrc/query.cu``), the map insert's probe-and-claim rounds
+(``csrc/insert.cu``) and the 2-D ``take_along_axis`` of the gather
 experiments (``csrc/take_along.cu``). Float scatter-adds sum in a fixed
 order, so a run on the card is bit-for-bit repeatable, as the JAX
 package is.
@@ -35,7 +39,8 @@ Subpackages:
   map          voxel-hash surfel map
   odom         IMU propagation, deskew, iterated ESKF, per-scan step
   ops          hand-written CUDA kernels, their plain versions, the nvcc build
-  loop         loop candidate search, point-to-point ICP, loop verification
+  loop         loop candidate search, point-to-point and point-to-plane ICP,
+               multi-start loop verification
   pgo          factor-graph storage + LM/PCG solver + marginal covariance
   runtime      the engine (per scan, chunked, deferred; GPS), the KITTI
                drive loop, export and checkpoint/resume, the map localizer
@@ -43,7 +48,8 @@ Subpackages:
                native reader (numpy copies; ``native/fls_native.cpp``)
   postprocess  the HTML map viewer (numpy copy)
   scripts      entry points (``python -m fastliosam_tpu_torch.scripts.run_slam``,
-               ``.localize``, ``.make_kitti_synth``, ``.exp_gather``, ``.ab_trees``)
+               ``.localize``, ``.make_kitti_synth``, ``.exp_loop_trust``,
+               ``.exp_gather``, ``.ab_trees``)
   sim          synthetic world generator (numpy copy of the JAX package's)
   eval         ATE / RPE metrics (numpy copy)
   convert      JAX-package state (as numpy) -> port tensors

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
 from .segment import scatter_add
 
 PAD_VALUE = 1.0e6
@@ -24,6 +25,42 @@ class Cloud(NamedTuple):
 
     xyz: torch.Tensor
     mask: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    def count(self):
+        return torch.sum(self.mask.to(torch.int32))
+
+
+def make_cloud(xyz, mask=None, capacity: int | None = None, device=None) -> Cloud:
+    """A padded Cloud from (n, 3) points (padded or truncated to
+    ``capacity``). A tensor stays on its device unless ``device`` is
+    given; a host array goes to ``device`` (``cuda`` by default)."""
+    if device is None and isinstance(xyz, torch.Tensor):
+        dev = xyz.device
+    else:
+        dev = resolve_device(device)
+    xyz = torch.as_tensor(xyz, dtype=torch.float32).to(dev)
+    n = xyz.shape[0]
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
+    if capacity is None:
+        capacity = n
+    if n >= capacity:
+        xyz, mask = xyz[:capacity], mask[:capacity]
+    else:
+        pad = capacity - n
+        xyz = torch.cat([xyz, torch.full((pad, 3), PAD_VALUE, dtype=torch.float32, device=dev)])
+        mask = torch.cat([mask, torch.zeros((pad,), dtype=torch.bool, device=dev)])
+    return _padded(xyz, mask)
+
+
+def _padded(xyz, mask) -> Cloud:
+    """The cloud with its masked lanes set to the sentinel."""
+    return Cloud(xyz=torch.where(mask[:, None], xyz, PAD_VALUE), mask=mask)
 
 
 def _pack_voxel_keys(xyz, mask, voxel_size):
@@ -74,3 +111,39 @@ def voxel_downsample(cloud: Cloud, voxel_size: float) -> Cloud:
     out_mask = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
     out_mask[dest] = occupied
     return Cloud(xyz=out_xyz[:n], mask=out_mask[:n])
+
+
+def voxel_downsample_points(xyz, mask, voxel_size: float):
+    """Array-level :func:`voxel_downsample`, returning ``(xyz, mask)``."""
+    c = voxel_downsample(Cloud(xyz=xyz, mask=mask), voxel_size)
+    return c.xyz, c.mask
+
+
+def stride_filter(cloud: Cloud, point_filter_num: int) -> Cloud:
+    """Keep every k-th point (FAST-LIO ``point_filter_num``)."""
+    if point_filter_num <= 1:
+        return cloud
+    idx = torch.arange(cloud.capacity, device=cloud.xyz.device)
+    return _padded(cloud.xyz, cloud.mask & ((idx % point_filter_num) == 0))
+
+
+def blind_filter(cloud: Cloud, blind: float) -> Cloud:
+    """Drop points closer than ``blind`` metres to the sensor."""
+    d2 = torch.sum(cloud.xyz * cloud.xyz, dim=-1)
+    return _padded(cloud.xyz, cloud.mask & (d2 > blind * blind))
+
+
+def range_filter(cloud: Cloud, max_range: float) -> Cloud:
+    """Drop points beyond ``max_range`` metres."""
+    d2 = torch.sum(cloud.xyz * cloud.xyz, dim=-1)
+    return _padded(cloud.xyz, cloud.mask & (d2 < max_range * max_range))
+
+
+def compact(cloud: Cloud) -> Cloud:
+    """Pack the valid points to the front, in order; capacity unchanged."""
+    order = torch.argsort(~cloud.mask, stable=True)
+    return _padded(cloud.xyz[order], cloud.mask[order])
+
+
+def concat(a: Cloud, b: Cloud) -> Cloud:
+    return Cloud(xyz=torch.cat([a.xyz, b.xyz]), mask=torch.cat([a.mask, b.mask]))

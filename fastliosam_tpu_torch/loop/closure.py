@@ -3,8 +3,10 @@
 
 ``LoopConfig`` has the JAX package's fields and defaults; its docstrings
 there record why each deliberate divergence from the reference exists.
-Point-to-plane ICP (``icp_method="p2pl"``) and multi-start ICP
-(``icp_multistart > 1``) are later slices and raise here.
+Both ICP methods (``icp_method="point"`` and ``"p2pl"``, whose normals come
+from the destination's surfel map through the cached-plane query) and the
+multi-start coarse search (``icp_multistart > 1``) are ported; the sharded
+ICP backend (``icp_fn``) is not.
 """
 from __future__ import annotations
 
@@ -13,11 +15,12 @@ from typing import NamedTuple
 import torch
 
 from ..core import se3
+from ..core.eigh3 import eigh3
 from ..core.pointcloud import Cloud, voxel_downsample
 from ..map import voxel_hash as vh
 from ..utils.device import resolve_device, to_device
 from ..utils.precision import geometry_precision
-from .icp import icp_align
+from .icp import icp_align, icp_align_p2pl
 
 
 class LoopConfig(NamedTuple):
@@ -104,10 +107,6 @@ def verify_loop(
     translation when ``cfg.aniso_noise``)."""
     if icp_fn is not None:
         raise NotImplementedError("icp_fn (sharded ICP backends) is not ported yet")
-    if cfg.icp_method != "point":
-        raise NotImplementedError(f"icp_method={cfg.icp_method!r} is not ported yet")
-    if cfg.icp_multistart > 1:
-        raise NotImplementedError("icp_multistart > 1 is not ported yet")
     dev = resolve_device(device)
     kf_clouds, kf_cloud_masks, poses, kf_valid = to_device(
         (kf_clouds, kf_cloud_masks, poses, kf_valid), dev
@@ -116,17 +115,23 @@ def verify_loop(
                                  query_idx, cfg)
     dst, dst_mask = build_submap(kf_clouds, kf_cloud_masks, poses, kf_valid,
                                  cand_idx, cfg)
-    icp_tf, fitness, n_corr = icp_align(
-        src,
-        src_mask,
-        dst,
-        dst_mask,
-        max_iterations=cfg.max_iterations,
-        max_corr_dist=cfg.radius * cfg.max_corr_factor,
-        nn_chunk=cfg.nn_chunk,
-        trim_fraction=cfg.trim_fraction,
-        convergence_eps=cfg.convergence_eps,
-    )
+    # the destination's surfel map: the point-to-plane normals, the
+    # anisotropic-noise coverage Gram and the multi-start's weak axis
+    multistart = cfg.icp_multistart > 1
+    if cfg.icp_method == "p2pl" or cfg.aniso_noise or multistart:
+        dst_map, dst_map_cfg = _dst_surfel_map(dst, dst_mask, cfg)
+    init_T = torch.eye(4, dtype=torch.float32, device=dev)
+    if multistart:
+        init_T = _multistart_init(src, src_mask, dst, dst_mask, dst_map, cfg)
+    icp_kw = dict(init_T=init_T, max_iterations=cfg.max_iterations,
+                  max_corr_dist=cfg.radius * cfg.max_corr_factor, nn_chunk=cfg.nn_chunk,
+                  trim_fraction=cfg.trim_fraction, convergence_eps=cfg.convergence_eps)
+    if cfg.icp_method == "p2pl":
+        nrm_pts, _, nvalid = vh.query_planes(dst_map, dst_map_cfg, dst, dst_mask)
+        icp_tf, fitness, n_corr = icp_align_p2pl(src, src_mask, dst, dst_mask, nrm_pts,
+                                                 nvalid, **icp_kw)
+    else:
+        icp_tf, fitness, n_corr = icp_align(src, src_mask, dst, dst_mask, **icp_kw)
     accepted = (fitness < cfg.icp_score_threshold) & (n_corr > cfg.min_correspondences)
     T_q = poses[query_idx]
     T_c = poses[cand_idx]
@@ -139,7 +144,6 @@ def verify_loop(
         t_info = torch.clamp(base_info, max=cfg.max_sqrt_info)
     sqrt_info = torch.cat([t_info.expand(3), base_info.expand(3)]).to(torch.float32)
     if cfg.aniso_noise:
-        dst_map = _dst_surfel_map(dst, dst_mask, cfg)
         R_c = se3.rot(T_c)
         scale_t = _aniso_translation_scales_from_map(dst_map, R_c, cfg)
         base = sqrt_info[:3]
@@ -160,14 +164,50 @@ def verify_loop(
     return rel, sqrt_info, accepted, fitness
 
 
+def _multistart_init(src, src_mask, dst, dst_mask, dst_map, cfg: LoopConfig):
+    """Coarse multi-start search: a short point-to-point ICP from
+    ``icp_multistart`` initial translations spaced ``multistart_step`` apart
+    along the destination's weakest horizontal normal-coverage direction
+    (the axis slides live on); returns the coarse transform of the best
+    fitness (the first on a tie) as the refinement's seed. The starts run
+    one after another, as the JAX package's ``lax.map`` runs them."""
+    w = dst_map.plane_valid.to(torch.float32)
+    Gw = (dst_map.normal * w[:, None]).T @ dst_map.normal
+    lam, V = eigh3(0.5 * (Gw + Gw.T))
+    # 1-element indices: indexing with a 0-dim tensor would read it back
+    axis = V.index_select(1, torch.argmin(lam).reshape(1))[:, 0]
+    # slides are horizontal (vehicle motion): project out z, normalize
+    axis = torch.cat([axis[:2], torch.zeros_like(axis[2:])])
+    axis = axis / torch.clamp(torch.linalg.vector_norm(axis), min=1e-6)
+    M = cfg.icp_multistart
+    offs = (torch.arange(M, dtype=torch.float32, device=dst.device) - (M - 1) / 2.0) \
+        * cfg.multistart_step
+    inits = torch.eye(4, dtype=torch.float32, device=dst.device).repeat(M, 1, 1)
+    inits[:, :3, 3] = offs[:, None] * axis[None, :]
+    Ts, fits = [], []
+    for k in range(M):
+        T, fit, _ = icp_align(
+            src, src_mask, dst, dst_mask, init_T=inits[k],
+            max_iterations=cfg.multistart_iters,
+            max_corr_dist=cfg.radius * cfg.max_corr_factor,
+            nn_chunk=cfg.nn_chunk,
+            trim_fraction=cfg.trim_fraction,
+            convergence_eps=cfg.convergence_eps,
+        )
+        Ts.append(T)
+        fits.append(fit)
+    return torch.stack(Ts).index_select(0, torch.argmin(torch.stack(fits)).reshape(1))[0]
+
+
 def _dst_surfel_map(dst, dst_mask, cfg: LoopConfig):
     """Throwaway voxel-surfel map of the destination submap with the plane
-    cache refreshed (feeds the anisotropic-noise coverage Gram)."""
+    cache refreshed, and its config: the point-to-plane normals, the
+    anisotropic-noise coverage Gram and the multi-start's weak axis."""
     vm_cfg = vh.VoxelMapConfig(capacity=1 << 14, voxel_size=cfg.aniso_voxel,
                                min_points=5)
     m, _ = vh.insert(vh.make_map(vm_cfg, dst.device), vm_cfg, dst, dst_mask,
                      refresh_planes=True)
-    return m
+    return m, vm_cfg
 
 
 def _aniso_translation_scales_from_map(m, R_c, cfg: LoopConfig):

@@ -16,7 +16,9 @@ new tensors and leave the input map untouched, as the JAX functions do.
 
 The merged plane queries make one call of
 :func:`ops.assoc_cuda.merged_moments` per association: probe, moment read
-and re-referenced sums, one hand-written CUDA launch on the card. The
+and re-referenced sums, one hand-written CUDA launch on the card; the
+cached-plane query is one call of :func:`ops.query_cuda.query_cached`
+(probe and the read of the cached plane fields, one launch too). The
 insert's probe-and-claim rounds, saturation check and moment-update rows
 are one call of :func:`ops.insert_cuda.insert_claim`, one launch too; the
 plane refresh's moment and coordinate reads go through
@@ -38,6 +40,7 @@ from ..core.voxel import voxel_coords as _voxel_coords
 from ..ops.assoc_cuda import merged_moments
 from ..ops.gather_cuda import gather_rows
 from ..ops.insert_cuda import insert_claim
+from ..ops.query_cuda import query_cached
 from ..utils.device import resolve_device
 
 
@@ -178,6 +181,14 @@ def _fit_rvar(xyz, mean_world, cov, normal, lam, tot_c, cfg):
     return (lam0 + eps) / torch.clamp(tot_c, min=1.0) * (1.0 + inplane)
 
 
+def query_planes(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
+    """Per-point cached plane lookup in the point's own voxel. Returns
+    ``(normal (N, 3), d (N,), valid (N,) bool)``; where no slot matched,
+    ``normal`` and ``d`` are slot 0's (the JAX package's clipped read)."""
+    return query_cached(m.fp, m.normal, m.d, m.plane_valid, xyz.contiguous(),
+                        mask.contiguous(), cfg.voxel_size, cfg.query_probes)
+
+
 _STENCIL7 = np.array(
     [[0, 0, 0], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
     dtype=np.int32,
@@ -215,6 +226,19 @@ def merged_pools(xyz, voxel_size):
     return coords0, pools
 
 
+def merged2_pools(xyz, voxel_size):
+    """``(coords0 (N, 3), pools (2, N, 3))``: each query's voxel and its
+    dominant face neighbour (the axis of the largest in-voxel offset, the
+    first on a tie; a zero offset there gives the own voxel again, counted
+    twice as in the JAX package), the pools of :func:`query_planes_merged2`."""
+    coords0 = _voxel_coords(xyz, voxel_size)
+    off = xyz - _voxel_center(coords0, voxel_size)
+    ax = torch.argmax(torch.abs(off), dim=-1)
+    onehot = (torch.arange(3, device=xyz.device)[None, :] == ax[:, None]).to(torch.int32)
+    step = torch.sign(torch.sum(off * onehot, dim=-1)).to(torch.int32)
+    return coords0, torch.stack((coords0, coords0 + step[:, None] * onehot))
+
+
 def merged3_pools(xyz, voxel_size):
     """``(coords0 (N, 3), pools (3, N, 3))``: each query's voxel and its two
     dominant face neighbours (one per largest in-voxel offset axis), the
@@ -238,6 +262,12 @@ def query_planes_merged(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
     """Plane fit from moments merged over the 7-voxel face stencil.
     Returns ``(normal, d, valid, rvar)``."""
     return _merged_fit(m, cfg, xyz, mask, *merged_pools(xyz, cfg.voxel_size))
+
+
+def query_planes_merged2(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
+    """Plane fit from the query's own voxel merged with its dominant face
+    neighbour. Returns ``(normal, d, valid, rvar)``."""
+    return _merged_fit(m, cfg, xyz, mask, *merged2_pools(xyz, cfg.voxel_size))
 
 
 def query_planes_merged3(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):

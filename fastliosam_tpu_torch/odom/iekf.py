@@ -25,15 +25,18 @@ from .state import NavState, OdomConfig, boxminus, boxplus
 
 
 def _query_planes(x, pts_body, mask, vmap, map_cfg, cfg: OdomConfig):
-    """``(normal, d, valid, rvar)`` of each point's plane at state ``x``."""
+    """``(normal, d, valid, rvar)`` of each point's plane at state ``x``;
+    ``rvar`` is 0 in the cached single-voxel mode, whose stored planes carry
+    no moment record."""
     pw = pts_body @ x.R.T + x.p
     if cfg.query_mode == "merged":
         return vh.query_planes_merged(vmap, map_cfg, pw, mask)
+    if cfg.query_mode == "merged2":
+        return vh.query_planes_merged2(vmap, map_cfg, pw, mask)
     if cfg.query_mode == "merged3":
         return vh.query_planes_merged3(vmap, map_cfg, pw, mask)
-    raise NotImplementedError(
-        f"query_mode={cfg.query_mode!r} is not ported yet (merged, merged3)"
-    )
+    n, d, valid = vh.query_planes(vmap, map_cfg, pw, mask)
+    return n, d, valid, torch.zeros(valid.shape, dtype=torch.float32, device=valid.device)
 
 
 def iekf_update(

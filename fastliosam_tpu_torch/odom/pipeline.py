@@ -23,7 +23,7 @@ from ..utils.device import resolve_device, to_device
 from ..utils.precision import geometry_precision
 from .iekf import iekf_update
 from .imu import ImuBatch, deskew, propagate
-from .state import NavState, OdomConfig, init_state
+from .state import GRAVITY, NavState, OdomConfig, init_state
 
 
 class Scan(NamedTuple):
@@ -53,6 +53,14 @@ def init_odom(map_cfg: vh.VoxelMapConfig, odom_cfg: OdomConfig | None = None,
         initialized=False,
         w_cv=torch.zeros((3,), dtype=torch.float32, device=dev),
     )
+
+
+def gravity_from_imu(imu: ImuBatch):
+    """Initial gravity estimate from averaged static accelerometer samples
+    (FAST-LIO init capability). Returns world gravity assuming R0 = I."""
+    w = imu.mask.to(torch.float32)
+    mean_acc = torch.sum(imu.acc * w[:, None], dim=0) / torch.clamp(torch.sum(w), min=1.0)
+    return -mean_acc / torch.clamp(torch.linalg.vector_norm(mean_acc), min=1e-6) * GRAVITY
 
 
 def _preprocess(scan: Scan, cfg: OdomConfig) -> Scan:
@@ -147,10 +155,11 @@ def odom_step(
     w_fd = w_fd * torch.clamp(cfg.cv_max_rate / torch.clamp(w_mag, min=1e-9), max=1.0)
     w_cv_new = torch.where(has_imu, state.w_cv, w_fd)
 
-    # map insert of the updated world-frame cloud (cached planes are only
-    # read by the "cached" query mode, a later slice)
+    # map insert of the updated world-frame cloud (the cached-plane refit
+    # only where the query mode reads cached planes)
     pw = pts @ nav_new.R.T + nav_new.p
-    vmap_new, n_dropped = vh.insert(state.vmap, map_cfg, pw, msk, refresh_planes=False)
+    vmap_new, n_dropped = vh.insert(state.vmap, map_cfg, pw, msk,
+                                    refresh_planes=(cfg.query_mode == "cached"))
     if state.scan_idx % cfg.evict_every == cfg.evict_every - 1:
         vmap_new = vh.evict_far(vmap_new, map_cfg, nav_new.p, cfg.det_range)
 

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version."""
-from . import assoc_cuda, gather_cuda, insert_cuda, nn_cuda, take_along_cuda  # noqa: F401
+from . import assoc_cuda, gather_cuda, insert_cuda, nn_cuda, query_cuda, take_along_cuda  # noqa: F401
 from .assoc_cuda import merged_moments, merged_moments_cuda, merged_moments_ref  # noqa: F401
 from .gather_cuda import gather_rows, gather_rows_cuda, gather_rows_ref  # noqa: F401
 from .insert_cuda import insert_claim, insert_claim_cuda, insert_claim_ref  # noqa: F401
@@ -8,6 +8,7 @@ from .nn_cuda import (  # noqa: F401
     nearest_neighbors_cuda,
     nearest_neighbors_ref,
 )
+from .query_cuda import query_cached, query_cached_cuda, query_cached_ref  # noqa: F401
 from .take_along_cuda import (  # noqa: F401
     take_along_axis,
     take_along_axis_cuda,
@@ -16,4 +17,4 @@ from .take_along_cuda import (  # noqa: F401
 
 # every kernel module: KERNEL (name, route, source, replaces), launches,
 # reset_launches()
-KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda, assoc_cuda, insert_cuda)
+KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda, assoc_cuda, insert_cuda, query_cuda)

@@ -21,9 +21,10 @@ import ctypes
 import numpy as np
 import torch
 
-from ..core.voxel import fingerprint, hash_slot, voxel_center
+from ..core.voxel import voxel_center
 from . import build
 from .gather_cuda import gather_rows_ref
+from .query_cuda import find_slots_ref
 
 KERNEL = {
     "name": "merged_moments",
@@ -107,7 +108,6 @@ def merged_moments_ref(fp, moments, pools, coords0, mask, voxel_size: float, pro
     in probe order, only where ``mask`` holds), the moment read (zeros
     where nothing matched), and the re-referenced sums in the order the
     kernel keeps."""
-    cap = fp.shape[0]
     n = coords0.shape[0]
     dev = coords0.device
     c0 = voxel_center(coords0, voxel_size)
@@ -115,14 +115,7 @@ def merged_moments_ref(fp, moments, pools, coords0, mask, voxel_size: float, pro
     tot_s = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     tot_o = torch.zeros((n, 3, 3), dtype=torch.float32, device=dev)
     for coords in pools:
-        h0 = hash_slot(coords, cap).to(torch.int64)
-        want = fingerprint(coords)
-        slots = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        for p in range(probes):
-            cand = (h0 + p) & (cap - 1)
-            match = gather_rows_ref(fp, cand) == want
-            slots = torch.where((slots < 0) & match & mask, cand, slots)
-        found = slots >= 0
+        slots, found = find_slots_ref(fp, coords, mask, probes)
         mom = gather_rows_ref(moments, slots, valid=found)  # 0 where not found
         ci = mom[:, 0]
         si = mom[:, 1:4]

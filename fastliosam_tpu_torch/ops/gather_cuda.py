@@ -4,9 +4,12 @@ PyTorch version, and the dispatch between them.
 Port of the Pallas TPU kernels ``scripts/exp_assoc_kernels.py:
 exp_a_int_indexing`` and ``exp_b_fori_dynamic_slice`` (both compute
 ``table[idx]``). On the engine path it is the plane refresh's read of
-the moment and coordinate tables (``map/voxel_hash.py: _fit_planes``, the
-loop closure's throwaway map); the association's reads are fused into
-``ops/assoc_cuda.py``, the insert's into ``ops/insert_cuda.py``.
+the moment and coordinate tables (``map/voxel_hash.py: _fit_planes``: the
+loop closure's throwaway map, and the engine's map in the cached query
+mode) and the point-to-plane ICP's reads of the destination rows at the
+neighbours (``loop/icp.py: icp_align_p2pl``); the association's reads are
+fused into ``ops/assoc_cuda.py``, the cached-plane query's into
+``ops/query_cuda.py``, the insert's into ``ops/insert_cuda.py``.
 :func:`gather_rows` launches the kernel for CUDA tensors (or raises) and
 runs the plain version only for tensors on the CPU; there is no fallback
 from one to the other.

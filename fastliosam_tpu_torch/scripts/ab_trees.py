@@ -6,8 +6,9 @@ turns on one card: the per-scan and chunked engine paths of each tree's
         [--order parent,this,this,parent] [--scans 150] [--window 50] [--out ab.json]
 
 Each turn runs in a process of its own from its tree's root (the trees'
-packages share a name), builds that tree's kernels and drives the
-``make_engine``, ``run_engine`` and ``run_chunks`` of its ``chip_smoke.py``:
+packages share a name), builds that tree's kernels and drives the bench
+engine of its ``scripts/exp_loop_trust.py`` (``make_bench_engine``)
+through the ``run_engine`` and ``run_chunks`` of its ``chip_smoke.py``:
 the per-scan path (``SlamEngine.process``, after a 12-scan warm-up) and the
 chunked path (``process_chunk_deferred``, chunk 5). For each path it
 reports device operations per scan over the last ``window`` scans traced
@@ -66,6 +67,7 @@ def turn(root: str, feed_path: str, window: int, chunk: int = 5) -> dict:
 
     import chip_smoke as cs
     from fastliosam_tpu_torch.ops import KERNEL_MODULES, build
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
     from fastliosam_tpu_torch.utils import geometry_precision
 
     build.build(build.sources())
@@ -76,7 +78,7 @@ def turn(root: str, feed_path: str, window: int, chunk: int = 5) -> dict:
     with geometry_precision():
         for path in ("per_scan", "chunked"):
             per_scan = path == "per_scan"
-            engine = cs.make_engine(dev, chunk=chunk)
+            engine = make_bench_engine(dev, chunk=chunk)
             if per_scan:
                 cs.run_engine(engine, feed, dev, min(12, n_scans))  # warm-up
             calls = n_scans if per_scan else n_scans // chunk

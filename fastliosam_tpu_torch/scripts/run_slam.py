@@ -177,8 +177,7 @@ def parse_args(argv=None):
     ap.add_argument("--query-mode", choices=["merged", "merged2", "merged3", "cached"],
                     default="merged",
                     help="plane association: merged=7-voxel stencil (robust), "
-                    "merged3=adaptive 3-voxel (faster on dense scans); merged2 and cached "
-                    "are not ported yet (the engine raises NotImplementedError)")
+                    "merged3=adaptive 3-voxel (faster on dense scans)")
     ap.add_argument("--det-range", type=float, default=300.0)
     ap.add_argument("--num-ds-points", type=int, default=8192)
     ap.add_argument("--map-capacity-log2", type=int, default=19)

@@ -16,11 +16,11 @@ the lower index, and two launches agree bit for bit; at map coordinates
 |s|² + |d|², so there d2 agrees within rtol 1e-5 plus 4 ulps of that sum.
 The insert at the map build's 65,536-point batches and the plane
 refresh's reads at its slots: bit for bit, as below. The KITTI resume:
-two engines from one checkpoint equal bit for bit. The row gather and
-take_along_axis are copies: equal bit for bit (NaN fill included). The
-association's merged moments: equal bit for bit (the kernel rounds every
-product and sum as the plain version does, in its order). The replay: two
-runs equal bit for bit.
+two engines from one checkpoint equal bit for bit. The row gather,
+take_along_axis and the cached-plane query are copies: equal bit for bit
+(NaN fill included). The association's merged moments: equal bit for bit
+(the kernel rounds every product and sum as the plain version does, in its
+order). The replay: two runs equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -293,7 +293,8 @@ from fastliosam_tpu_torch.ops import assoc_cuda  # noqa: E402
 
 
 def _assoc_check(vh, m, cfg, xyz, mask, mode, probes):
-    pools_fn = vh.merged_pools if mode == "merged" else vh.merged3_pools
+    pools_fn = {"merged": vh.merged_pools, "merged2": vh.merged2_pools,
+                "merged3": vh.merged3_pools}[mode]
     coords0, pools = pools_fn(xyz, cfg.voxel_size)
     before = assoc_cuda.launches
     got = assoc_cuda.merged_moments(m.fp, m.moments, pools, coords0, mask, cfg.voxel_size,
@@ -308,7 +309,7 @@ def _assoc_check(vh, m, cfg, xyz, mask, mode, probes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["merged", "merged3"])
+@pytest.mark.parametrize("mode", ["merged", "merged2", "merged3"])
 @pytest.mark.parametrize("probes", [2, 4])
 def test_assoc_kernel_matches_plain_version_collisions(cuda_device, mode, probes):
     """A 512-slot map filled past its capacity: most voxels sit behind a
@@ -357,7 +358,7 @@ def _figure8_map(dev, n_scans=20):
 @pytest.mark.cuda
 def test_assoc_kernel_matches_plain_version_figure8_map(cuda_device):
     vh, m, cfg, (xyz, hit) = _figure8_map(cuda_device)
-    for mode in ("merged3", "merged"):
+    for mode in ("merged3", "merged2", "merged"):
         for probes in (2, 4):
             got = _assoc_check(vh, m, cfg, xyz, hit, mode, probes)
             assert int((got[:, 0] > 0).sum()) > 0.5 * int(hit.sum())
@@ -391,6 +392,124 @@ def test_assoc_kernel_rejects_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             assoc_cuda.merged_moments_cuda(*args)
     assoc_cuda.merged_moments_cuda(*ok)  # and the good call goes through
+
+
+@pytest.mark.cuda
+def test_assoc_kernel_merged2_at_voxel_centres(cuda_device):
+    """merged2's pools for queries exactly at voxel centres (the own voxel
+    twice) and on a tie of two axes, through the kernel at P = 2."""
+    vh, m, cfg, (xyz, hit) = _figure8_map(cuda_device)
+    occ = torch.nonzero(m.fp != 0)[:, 0][:4000]
+    centres = (m.coords[occ].float() + 0.5) * cfg.voxel_size
+    tie = centres + torch.tensor([0.125, -0.125, 0.0], device=cuda_device)
+    q = torch.cat([centres, tie, xyz]).contiguous()
+    mask = torch.cat([torch.ones(2 * len(occ), dtype=torch.bool, device=cuda_device), hit])
+    got = _assoc_check(vh, m, cfg, q, mask, "merged2", 2)
+    k = len(occ)
+    assert int((got[:k, 0] > 0).sum()) > 0.9 * k  # found (own voxel, counted twice)
+
+
+# ---------------------------------------------------------------------------
+# the cached-plane query: kernel and plain version bit for bit (normal, d,
+# valid), found and not-found rows alike
+# ---------------------------------------------------------------------------
+from fastliosam_tpu_torch.ops import query_cuda  # noqa: E402
+
+
+def _query_check(m, cfg, xyz, mask, probes=None):
+    probes = probes or cfg.query_probes
+    args = (m.fp, m.normal, m.d, m.plane_valid, xyz.contiguous(), mask.contiguous(),
+            cfg.voxel_size, probes)
+    before = query_cuda.launches
+    got = query_cuda.query_cached(*args)
+    torch.cuda.synchronize()
+    assert query_cuda.launches == before + 1
+    want = query_cuda.query_cached_ref(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(_bits(g) if g.is_floating_point() else g.cpu().numpy(),
+                                      _bits(w) if w.is_floating_point() else w.cpu().numpy())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probes", [1, 2, 4, 8])
+def test_query_kernel_matches_plain_version_figure8_map(cuda_device, probes):
+    """The figure-8 map with its planes refreshed, queried with the next
+    scan's points (ragged count, some masked) and far points (no slot:
+    slot 0's row, not valid)."""
+    vh, m, cfg, (xyz, hit) = _figure8_map(cuda_device)
+    m, _ = vh.insert(m, cfg, xyz, hit, refresh_planes=True)  # planes of the touched voxels
+    far = torch.full((77, 3), 900.0, device=cuda_device) + torch.arange(77, device=cuda_device)[:, None]
+    q = torch.cat([xyz[:8191], far])
+    mask = torch.cat([hit[:8191], torch.ones(77, dtype=torch.bool, device=cuda_device)])
+    mask[::13] = False
+    n, d, valid = _query_check(m, cfg, q, mask, probes)
+    assert not bool(valid[-77:].any()) and not bool(valid[::13].any())
+    assert torch.equal(n[-77:], m.normal[0].expand(77, 3))
+    if probes >= 2:
+        assert int(valid.sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_masked", "tight", "empty_map", "surfel_map"])
+def test_query_kernel_matches_plain_version_cases(cuda_device, case):
+    """All queries masked; a 512-slot table filled past capacity (voxels
+    behind foreign fingerprints, found at every probe); an empty map; and
+    the loop closure's 2^14-slot surfel map at 16,384 queries, 4 probes."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    rng = np.random.default_rng(len(case))
+    cap, n, half = {"all_masked": (1 << 12, 2000, 3.0), "tight": (1 << 9, 3001, 6.0),
+                    "empty_map": (1 << 10, 1000, 3.0), "surfel_map": (1 << 14, 16384, 20.0)}[case]
+    cfg = vh.VoxelMapConfig(capacity=cap, voxel_size=1.0 if case == "surfel_map" else 0.5,
+                            min_points=5 if case == "surfel_map" else 3)
+    pts = torch.from_numpy(rng.uniform(-half, half, size=(n, 3)).astype(np.float32))
+    if case == "surfel_map":  # walls and a floor, as a submap holds
+        pts[: n // 2, 2] = 0.0
+        pts[n // 2:, 1] = 7.0
+    pts = pts.to(cuda_device)
+    m = vh.make_map(cfg, cuda_device)
+    if case != "empty_map":
+        m, dropped = vh.insert(m, cfg, pts, torch.ones(n, dtype=torch.bool, device=cuda_device))
+        if case == "tight":
+            assert int(dropped) > 0
+    mask = torch.from_numpy(rng.uniform(size=n) > 0.1).to(cuda_device)
+    if case == "all_masked":
+        mask[:] = False
+    n_, d, valid = _query_check(m, cfg, pts, mask)
+    if case in ("all_masked", "empty_map"):
+        assert not bool(valid.any())
+    else:
+        assert int(valid.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_query_kernel_rejects_bad_inputs(cuda_device):
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    m = vh.make_map(vh.VoxelMapConfig(capacity=1 << 10), cuda_device)
+    xyz = torch.zeros((16, 3), device=cuda_device)
+    mask = torch.ones(16, dtype=torch.bool, device=cuda_device)
+    ok = (m.fp, m.normal, m.d, m.plane_valid, xyz, mask, 0.5, 2)
+    bad = [
+        (m.fp.float(),) + ok[1:],  # dtype
+        (m.fp[:1000].contiguous(),) + ok[1:],  # not a power of two
+        ok[:1] + (m.normal[:, :2].contiguous(),) + ok[2:],
+        ok[:2] + (m.d[:8].contiguous(),) + ok[3:],
+        ok[:3] + (m.plane_valid.bool(),) + ok[4:],
+        ok[:4] + (xyz.double(),) + ok[5:],
+        ok[:4] + (xyz.t().contiguous().t(),) + ok[5:],  # not contiguous
+        ok[:5] + (mask.int(),) + ok[6:],
+        ok[:5] + (mask[:8].contiguous(),) + ok[6:],  # query count
+        ok[:7] + (9,),  # probes
+        ok[:7] + (0,),
+        ok[:4] + (xyz.cpu(),) + ok[5:],  # device
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            query_cuda.query_cached_cuda(*args)
+    query_cuda.query_cached_cuda(*ok)  # and the good call goes through
 
 
 # ---------------------------------------------------------------------------

@@ -195,21 +195,22 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_unported_options_raise():
+    """The sharded backends are not ported: the mesh engine, the sharded
+    map operations and the sharded ICP raise. (The cached and merged2
+    query modes, point-to-plane and multi-start ICP are ported since:
+    tests/test_torch_query_modes.py, tests/test_torch_loop_modes.py.)"""
     with pytest.raises(NotImplementedError):
         trt.SlamEngine(mesh=object(), device="cpu")
     map_cfg = tmap.VoxelMapConfig(capacity=1 << 8)
     scan = todom.Scan(torch.zeros((16, 3)), torch.zeros(16), torch.ones(16, dtype=torch.bool))
     imu = todom.ImuBatch(torch.full((4,), 1e9), torch.zeros((4, 3)), torch.zeros((4, 3)),
                          torch.zeros(4, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="cached"):
+    with pytest.raises(NotImplementedError, match="map_ops"):
         todom.odom_step(todom.init_odom(map_cfg, device="cpu"), scan, imu, 0.1,
                         todom.OdomConfig(query_mode="cached", num_ds_points=16), map_cfg,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="multistart"):
+                        map_ops=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="icp_fn"):
         tloop.verify_loop(torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool),
                           torch.eye(4).repeat(2, 1, 1), torch.ones(2, dtype=torch.bool),
-                          1, 0, tloop.LoopConfig(icp_multistart=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tloop.verify_loop(torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool),
-                          torch.eye(4).repeat(2, 1, 1), torch.ones(2, dtype=torch.bool),
-                          1, 0, tloop.LoopConfig(icp_method="p2pl"), device="cpu")
+                          1, 0, tloop.LoopConfig(icp_multistart=2, icp_method="p2pl"),
+                          icp_fn=object(), device="cpu")

@@ -8,11 +8,14 @@ NVIDIA GPU — the quickest proof that the port still builds and runs there.
 Phases, each of which fails the script (non-zero exit) if it fails:
   1. the card's name and power limit (nvidia-smi); the two sim feeds start
      generating in two worker processes (they take ~1-2 minutes of host
-     time and are cached under build/), and the KITTI sequence of phase 8
+     time and are cached under build/), the recording of phase 9 after
+     them in one of the two (at nice 10), and the KITTI sequence of phase 8
      in its own worker processes;
   2. build every CUDA kernel of the package from ``fastliosam_tpu_torch/csrc``
      (one nvcc per source, all started together) into ``build/kernels/``;
-  3. kernel phase: each kernel against its plain PyTorch version on the card
+  3. kernel phase: the timing floor first (an empty kernel, ``csrc/empty.cu``,
+     at 1 and 132 blocks, timed as the kernels are); each kernel against
+     its plain PyTorch version on the card
      at the main path's shapes plus ragged ones (the gathers, the
      association and the insert bit for bit; the nearest neighbours also
      on ties planted across its destination slices, and twice for
@@ -29,9 +32,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      reads of submaps around the engine's keyframes after 30 scans and on
      the point-to-plane ICP's row reads of those submaps, the
      association and the insert on the engine's own 2^19-slot map after 20
-     scans (the insert also on a tight table that drops points and on an
-     evicted map), the cached query on that map with its planes fitted
-     (8192 queries, 2 probes) and on the submaps' surfel maps (16,384
+     scans (the association also in the merged stencil at 4 probes and the
+     insert at 4 rounds, run_slam's map configuration; the insert also on
+     a tight table that drops points and on an evicted map), the cached
+     query on that map with its planes fitted (8192 queries, 2 probes) and
+     on the submaps' surfel maps (16,384
      queries, 2^14 slots, 4 probes), plus ragged, all-masked, not-found
      and tight-table queries;
   4. per-scan phase: ``SlamEngine.process`` over the figure-8 loop feed at
@@ -68,7 +73,19 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      perturbed by 1 m and 5 degrees, 200 scans, every step matching
      points); and the NN, insert and row gather against their plain
      versions at the localizer's shapes (8192 x 2^19, 65,536 points, (2^19,
-     10|3) x 65,536), printed under ``at_localizer_shape``.
+     10|3) x 65,536), printed under ``at_localizer_shape``;
+  9. bag phase, the ROS-bag entry point through the port's CLI
+     (``run_slam.run``, the body of ``run_slam.main``): the figure-8
+     world and path of phases 4-7, started from rest, rendered at Ouster
+     OS1-64 width (1024 x 64 rays, 65,536 points a scan, 150 scans, IMU at
+     100 Hz) in the ``newer-college2020`` preset's LiDAR frame and written
+     as the Ouster driver publishes it (``sim/writers.py``), run with
+     ``--dataset bag --preset newer-college2020`` at the default 131,072
+     points of capacity, twice (bit-identical trajectories and loop pairs;
+     ATE < 0.10 m; a verification; the replay traced); then ``--dataset
+     mulran --use-gps`` over the first 50 scans written as a MulRan
+     directory (GPS factors; ATE gated) and ``--dataset newer-college``
+     over their bag (the decoded scans and IMU equal ``BagSequence``'s).
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours and the row gather (the loop closure's plane refresh) on the
@@ -76,14 +93,16 @@ loop-closing phases 4 and 5, the association and the insert on 4-6,
 all four on the KITTI long run and the localizer, take_along_axis on the
 experiment entry point; in phase 7 the cached query, the insert, the row
 gather and the NN on the cached run and the association, the insert and
-the NN on the merged2 run). Phases 4-6 report the
+the NN on the merged2 run; the association, the insert, the row gather
+and the NN on the bag run of phase 9). Phases 4-6 and 9 report the
 insert's, the association's and the row gather's launches per scan, and
 device operations per scan over a window traced with ``torch.profiler``
 (the last 50 scans of the replay in 4 and 5, the last 25 of the GPS-off
-run in 6; ``engine.finish()`` included). With ``--profile-scans N``
-an extra per-scan run, after every phase, traces its last N scans with
+run in 6, the whole replay in 9; ``engine.finish()`` included). With
+``--profile-scans N`` an extra per-scan run, after every phase, traces its last N scans with
 ``torch.profiler``; it does not touch the launch counts. The line before
-the last is a JSON object describing every kernel; the last line is
+the last is a JSON object describing every kernel (with the timing
+floor under ``timing_floor_ms``); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -119,6 +138,30 @@ def cuda_ms(fn, reps: int) -> float:
     from fastliosam_tpu_torch.utils.timing import device_ms
 
     return device_ms(fn, [()] * reps)
+
+
+def launch_floor_ms(blocks: int) -> float:
+    """Device time of an empty kernel (``csrc/empty.cu``, ``blocks`` x 256
+    threads), launched through ctypes as every kernel wrapper launches its
+    kernel and timed as the kernels are (:func:`cuda_ms`): the least time a
+    kernel can read there."""
+    import ctypes
+
+    import torch
+
+    from fastliosam_tpu_torch.ops import build
+
+    fn = build.load("empty").empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(blocks, 256, stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
+
+    return cuda_ms(launch, 10)
 
 
 # ---------------------------------------------------------------------------
@@ -378,10 +421,13 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     engine's own 2^19-slot map after ``n_map_scans`` figure-8 scans
     (``figure8_map``), queried with 8192 points of each of its last
     ``reps`` scans at the engine's poses (world frame, not deskewed), in the
-    merged3 pools (3 per query) and the merged2 pools (2 per query). Each
-    is timed over those fresh query sets beside the plain version. Returns
-    the record of merged3 (the kernels line) with merged2's under
-    ``at_merged2``."""
+    merged3 pools (3 per query), the merged2 pools (2 per query) and the
+    merged stencil (7 per query, 4 probes). Each is timed over those fresh
+    query sets beside the plain version. Returns the record of merged3 (the
+    kernels line) with merged2's under
+    ``at_merged2``, and the merged stencil's (7 pools at the map's default
+    4 probes: run_slam's bag, MulRan and Newer College paths) under
+    ``at_merged``."""
     import torch
 
     from fastliosam_tpu_torch.core import voxel
@@ -395,9 +441,14 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     queries = _scan_queries(dev, feed, traj, range(n_map_scans - reps, n_map_scans),
                             seed=n_map_scans)
     args = (m.fp, m.moments)
-    tail = (cfg.voxel_size, cfg.query_probes)
     recs = {}
-    for mode, pools_fn in (("merged3", vh.merged3_pools), ("merged2", vh.merged2_pools)):
+    # the bench's pools and probes, and run_slam's (the merged stencil at
+    # the map's default probe count: the bag, MulRan and Newer College paths)
+    for mode, pools_fn, probes in (
+            ("merged3", vh.merged3_pools, cfg.query_probes),
+            ("merged2", vh.merged2_pools, cfg.query_probes),
+            ("merged", vh.merged_pools, vh.VoxelMapConfig().query_probes)):
+        tail = (cfg.voxel_size, probes)
         sets, nbytes = [], []
         for xyz in queries:
             coords0, pools = pools_fn(xyz, cfg.voxel_size)
@@ -407,7 +458,7 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
             # sectors (distinct), the coordinates and mask read, the output
             h0 = voxel.hash_slot(pools, cfg.capacity).to(torch.int64).cpu().numpy().reshape(-1)
             want = voxel.fingerprint(pools).cpu().numpy().reshape(-1)
-            cand = (h0[:, None] + np.arange(cfg.query_probes)) & (cfg.capacity - 1)
+            cand = (h0[:, None] + np.arange(probes)) & (cfg.capacity - 1)
             hit = fp_np[cand] == want[:, None]
             found = cand[hit.any(1), hit[hit.any(1)].argmax(1)]
             nbytes.append(sector_bytes(cand.reshape(-1), 1) + sector_bytes(found, 10)
@@ -428,15 +479,15 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
         n_pools = sets[0][0].shape[0]
         print(f"  merged_moments {mode} (2^{cfg.capacity.bit_length() - 1}-slot map after "
               f"{n_map_scans} figure-8 scans) 8192 x {n_pools} pools x "
-              f"{cfg.query_probes} probes, {reps} query sets: equal, kernel {ms:.4f} ms, plain "
+              f"{probes} probes, {reps} query sets: equal, kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({np.mean(nbytes):.0f} HBM bytes), "
               f"voxels found {np.mean(found_share):.1%} of queries; "
               f"map holds {int((fp_np != 0).sum())} voxels")
         recs[mode] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": "bytes", "library_ms": None, "pools": n_pools,
+                      "bound_by": "bytes", "library_ms": None, "pools": n_pools, "probes": probes,
                       "library_note": "no single PyTorch call probes a hash table and "
                                       "merges moments"}
-    return dict(recs["merged3"], at_merged2=recs["merged2"])
+    return dict(recs["merged3"], at_merged2=recs["merged2"], at_merged=recs["merged"])
 
 
 def _cached_map(m, cfg):
@@ -668,6 +719,8 @@ def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     for xyz, mask in sets:
         got = compare("figure-8", m.fp, m.coords, m.moments, xyz, mask, rounds)
         new_voxels.append(int((got[0] != 0).sum()) - int((m.fp != 0).sum()))
+        # run_slam's maps probe and claim over 4 slots (VoxelMapConfig's default)
+        compare("figure-8, 4 rounds", m.fp, m.coords, m.moments, xyz, mask, 4)
     # tight: two scans' points into 2^12 slots, 4 rounds
     tight_xyz = torch.cat([sets[0][0], sets[1][0]])
     tight_mask = torch.cat([sets[0][1], sets[1][1]])
@@ -679,7 +732,7 @@ def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     # evicted: holes punched around the pose of the first inserted scan
     ev = vh.evict_far(m, cfg, torch.from_numpy(traj[n_map_scans][:3, 3]).to(dev), 8.0)
     compare("evicted", ev.fp, ev.coords, ev.moments, *sets[0], rounds)
-    print(f"  insert_claim: equal on the figure-8 map ({reps} scans, "
+    print(f"  insert_claim: equal on the figure-8 map ({reps} scans at {rounds} and 4 rounds, "
           f"{np.mean(new_voxels):.0f} new voxels per insert), the tight 2^12 table "
           f"({tight_dropped} of {int(tight_mask.sum())} points dropped) and the evicted map "
           f"({int((m.fp != 0).sum()) - int((ev.fp != 0).sum())} voxels evicted)")
@@ -696,28 +749,35 @@ def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     ms = times[rounds]
     call_ms = device_ms(lambda x, k: insert_cuda.insert_claim_cuda(
         m.fp, m.coords, m.moments, x, k, vs, rounds, maxp), sets)
-    plain_ms = device_ms(lambda x, k: insert_cuda.insert_claim_ref(
-        m.fp, m.coords, m.moments, x, k, vs, rounds, maxp), sets)
+    plain = {r: device_ms(lambda x, k, r=r: insert_cuda.insert_claim_ref(
+        m.fp, m.coords, m.moments, x, k, vs, r, maxp), sets) for r in (rounds, 4)}
+    plain_ms = plain[rounds]
     blocks, per_thread = insert_cuda.insert_claim_grid(sets[0][0].shape[0], dev)
     sync_ms = {s: device_ms(lambda b, s=s: insert_cuda.grid_sync_probe(b, s, dev),
                             [(blocks,)] * reps) for s in (0, 2 * rounds)}
     per_sync = (sync_ms[2 * rounds] - sync_ms[0]) / (2 * rounds)
     fp_np = m.fp.cpu().numpy()
-    nbytes = [_insert_bytes(fp_np, cfg, xyz, mask, insert_cuda.insert_claim_cuda(
-        m.fp, m.coords, m.moments, xyz, mask, vs, rounds, maxp)[2], rounds)
-        for xyz, mask in sets]
-    bound_ms = float(np.mean(nbytes)) / H100_BYTES_PER_S * 1e3
+    nbytes = {}  # HBM bytes at the bench's rounds and at run_slam's 4
+    for r in (rounds, 4):
+        sls = [insert_cuda.insert_claim_cuda(m.fp, m.coords, m.moments, xyz, mask, vs, r,
+                                             maxp)[2] for xyz, mask in sets]
+        nbytes[r] = float(np.mean([_insert_bytes(fp_np, cfg, xyz, mask, sl, r)
+                                   for (xyz, mask), sl in zip(sets, sls)]))
+    bounds = {r: b / H100_BYTES_PER_S * 1e3 for r, b in nbytes.items()}
+    bound_ms = bounds[rounds]
     print(f"  insert_claim 8192 points, 2^19-slot map, {rounds} rounds: kernel {ms:.4f} ms "
           f"(1 round {times[1]:.4f}, 4 rounds {times[4]:.4f}), whole call with its table "
           f"copies {call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({np.mean(nbytes):.0f} HBM bytes); grid {blocks} x 256 threads, {per_thread} "
-          f"point(s) a thread: a grid barrier {per_sync * 1e3:.2f} us "
+          f"({nbytes[rounds]:.0f} HBM bytes); grid {blocks} x 256 threads, {per_thread} "
+          f"point(s) a thread (4 rounds: plain {plain[4]:.4f} ms, bound {bounds[4]:.5f} ms): "
+          f"a grid barrier {per_sync * 1e3:.2f} us "
           f"({2 * rounds} barriers = {2 * rounds * per_sync / ms:.0%} of the kernel), "
           f"an empty cooperative launch {sync_ms[0]:.4f} ms")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None,
             "library_note": "none: no PyTorch call probes and claims a hash table",
-            "ms_by_rounds": times, "call_ms": call_ms, "grid_blocks": blocks,
+            "ms_by_rounds": times, "plain_ms_by_rounds": plain, "bound_ms_by_rounds": bounds,
+            "call_ms": call_ms, "grid_blocks": blocks,
             "grid_sync_ms": per_sync, "empty_launch_ms": sync_ms[0]}
 
 
@@ -1687,6 +1747,214 @@ def kitti_phase(dev, root: str, chunk: int = 5) -> dict:
             "kernel_shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# bag phase: the ROS-bag entry point (run_slam --dataset bag) at Ouster OS1-64
+# width, and the MulRan and Newer College readers over the same recording
+# ---------------------------------------------------------------------------
+BAG_PRESET = "newer-college2020"
+OS1_64 = (1024, 64)  # azimuths x rings: 65,536 points a scan
+BAG_SHORT_SCANS = 50  # the MulRan and Newer College runs
+# ATE gates (m): the figure-8 gate, which holds for the bag run while the
+# JAX package on the CPU reads <= 0.05 m at 512 x 64 over the same 150
+# scans (it read 0.0358 m; tests/test_torch_longrun.py), and for the MulRan
+# run with GPS the larger of 0.10 m and twice JAX's reading there (0.0344 m)
+BAG_ATE_GATE = 0.10
+MULRAN_ATE_GATE = max(0.10, 2 * 0.0344)
+
+
+def bag_feed(n_scans: int = 150, seed: int = 11) -> str:
+    """The figure-8 recording (``sim/writers.py: render_figure8``: the
+    loop feed of phases 4-7, started from rest) at OS1-64 geometry in the
+    ``newer-college2020`` preset's LiDAR frame, written under build/ as
+    the Ouster driver publishes it: ``figure8.bag`` (all scans; IMU at
+    100 Hz, NavSatFix at 1 Hz), ``figure8_short.bag`` and
+    ``registered_poses.csv`` (the first ``BAG_SHORT_SCANS`` scans, for the
+    Newer College reader), ``mulran/`` (the same scans as a MulRan
+    directory, GPS at 10 Hz) and ``truth.npz``. The recording's clock
+    starts at 1000 s (``writers.T0_NS``), not at a Unix epoch as a real
+    bag's does: both engines keep keyframe stamps in float32, so at an
+    epoch no loop is ever tried and the bag phase's loop gate could not
+    hold (ROADMAP Queue 3 fault 3, queued). Runs in a worker process at
+    nice 10 (it takes minutes of host time); kept when complete."""
+    import os
+    import shutil
+
+    from fastliosam_tpu_torch.io.presets import PRESETS
+    from fastliosam_tpu_torch.sim import writers
+
+    os.nice(10)
+    out = ROOT / "build" / f"chip_smoke_bag_{n_scans}_{seed}_{OS1_64[0]}x{OS1_64[1]}"
+    if out.exists():
+        return str(out)
+    tmp = out.with_name(out.name + ".tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    pre = PRESETS[BAG_PRESET]
+    data = writers.render_figure8(n_scans, pre, *OS1_64, seed=seed)
+    writers.write_bag(str(tmp / "figure8.bag"), data, pre, *OS1_64)
+    writers.write_bag(str(tmp / "figure8_short.bag"), data, pre, *OS1_64,
+                      n_scans=BAG_SHORT_SCANS)
+    writers.write_gt_csv(str(tmp / "registered_poses.csv"), data, n_scans=BAG_SHORT_SCANS)
+    writers.write_mulran(str(tmp / "mulran"), data, *OS1_64, pre.extrinsic_R, pre.extrinsic_T,
+                         n_scans=BAG_SHORT_SCANS)
+    np.savez(tmp / "truth.npz", gt_p=np.stack([g[1] for g in data["gt"]]))
+    tmp.rename(out)
+    return str(out)
+
+
+def _cli_run(argv):
+    """``run_slam.run(argv)`` (the body of its ``main``) with every
+    kernel's launch count set to 0 just before and the host reads counted:
+    returns the engine, the drive's host seconds, the host reads and the
+    launch counts."""
+    from fastliosam_tpu_torch.scripts import run_slam
+    from fastliosam_tpu_torch.utils import host_reads, reset_host_reads
+
+    def drive():
+        reset_host_reads()
+        engine, drive_s = run_slam.run(argv)
+        return engine, drive_s, host_reads()
+
+    (engine, drive_s, reads), launches = _launch_counts(drive)
+    return engine, drive_s, reads, launches
+
+
+def _cli_result(engine, drive_s, reads, launches, gt_p) -> dict:
+    from fastliosam_tpu_torch.eval import ate_rmse
+
+    rt = np.stack(engine.realtime_traj)
+    n = len(rt)
+    return {
+        "scans": n, "scans_per_s": n / drive_s, "keyframes": engine.kf.n,
+        "loops": len(engine.loop_pairs), "verifications": len(engine.loop_attempts),
+        "solves": engine.solve_count, "gps_factors": int(engine.graph.n_gps),
+        "ate_m": ate_rmse(rt[:, :3, 3], gt_p[:n], align=True),
+        "host_reads_per_scan": reads / n, "launches": launches,
+        "launches_per_scan": {k: v / n for k, v in launches.items()},
+        "finite": _finite(engine), "loop_pairs": [list(map(int, p)) for p in engine.loop_pairs],
+    }
+
+
+def _decoded_equal(short_bag: str) -> dict:
+    """The Newer College reader's scans and IMU against ``BagSequence``'s
+    on the same bag: xyz, intensity and stamps bit for bit, the IMU as
+    float32 (the reader keeps float64, the preset stream float32), point
+    times within one float32 step of the 0.1 s sweep (the reader scales
+    in float32, the preset stream in float64)."""
+    from fastliosam_tpu_torch.io.newer_college import NewerCollegeSequence
+    from fastliosam_tpu_torch.io.presets import PRESETS, BagSequence
+
+    nc = list(NewerCollegeSequence(bags=short_bag).stream())
+    bs = [e for e in BagSequence(short_bag, PRESETS[BAG_PRESET]).stream() if e[0] != "gps"]
+    ok = len(nc) == len(bs)
+    dt_max, n_scans = 0.0, 0
+    for (k1, s1, p1), (k2, s2, p2) in zip(nc, bs):
+        ok = ok and k1 == k2 and s1 == s2
+        if not ok:
+            break
+        if k1 == "scan":
+            n_scans += 1
+            ok = np.array_equal(p1[0], p2[0]) and np.array_equal(p1[1], p2[1])
+            dt_max = max(dt_max, float(np.abs(p1[2].astype(np.float64) - p2[2]).max()))
+        else:
+            ok = all(np.array_equal(np.float32(a), np.float32(b)) for a, b in zip(p1, p2))
+    return {"equal": bool(ok and dt_max <= float(np.spacing(np.float32(0.1)))),
+            "events": len(nc), "scans": n_scans,
+            "max_point_time_diff_s": dt_max}
+
+
+def bag_phase(dev, feed_dir: str) -> dict:
+    """The ROS-bag entry point through the port's CLI (``run_slam.run``,
+    the body of ``run_slam.main``) on the card: ``--dataset bag --preset
+    newer-college2020`` over the 150-scan OS1-64 recording at the default
+    131,072-point scan capacity, 8192 iEKF points, a 2^19-slot map and
+    loops at 10 m / 4 s (GPS off: the fixes are decoded, not used), twice,
+    each from a freshly built engine; the replay is traced with
+    ``torch.profiler``. Gates: the two runs bit-identical (trajectories and
+    loop pairs), ATE < ``BAG_ATE_GATE`` (Umeyama-aligned: the CLI starts at
+    the identity), a loop verification (possible only because the
+    recording's clock starts at 1000 s: see :func:`bag_feed`), every pose
+    finite and
+    merged_moments, insert_claim, gather_rows and nearest_neighbors
+    launched. Then ``--dataset mulran --use-gps`` over the first 50 scans'
+    MulRan directory (GPS factors > 0, ATE < ``MULRAN_ATE_GATE``) and
+    ``--dataset newer-college --gt-csv`` over their bag (the decoded scans
+    and IMU those of ``BagSequence``; finite poses; its ATE printed, not
+    gated: that path applies no extrinsic, as the JAX script's)."""
+    import torch
+
+    d = Path(feed_dir)
+    gt_p = np.load(d / "truth.npz")["gt_p"]
+    out = ROOT / "build" / "bag_runs"
+    argv = ["--dataset", "bag", "--preset", BAG_PRESET, "--root", str(d / "figure8.bag"),
+            "--num-ds-points", "8192", "--map-capacity-log2", "19", "--loop-radius", "10",
+            "--loop-time-gap", "4", "--out", str(out / "bag")]
+    print(f"  bag: run_slam {' '.join(argv)}")
+    engine, drive_s, reads, launches = _cli_run(argv)
+    bag = _cli_result(engine, drive_s, reads, launches, gt_p)
+    first = (np.stack(engine.realtime_traj), list(engine.loop_pairs))
+    del engine
+    prof, t_prof = _start_profile()
+    engine, _, _, _ = _cli_run(argv)
+    torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    bag["replay_bit_identical"] = _replay(engine, first)
+    bag["device_ops_per_scan"] = profile_summary(
+        prof, time.perf_counter() - t_prof, bag["scans"], top=6)["device_ops_per_scan"]
+    del engine
+    print("  bag: " + json.dumps(bag))
+    _fail("bag phase, bag", {
+        "150 scans": bag["scans"] == len(gt_p),
+        "every pose finite": bag["finite"],
+        f"ATE < {BAG_ATE_GATE} m": bag["ate_m"] < BAG_ATE_GATE,
+        "at least one verification": bag["verifications"] >= 1,
+        "replay bit-identical": bag["replay_bit_identical"],
+        "merged_moments, insert_claim, gather_rows and nearest_neighbors launched":
+            min(launches[k] for k in ("merged_moments", "insert_claim", "gather_rows",
+                                      "nearest_neighbors")) > 0,
+    })
+
+    argv = ["--dataset", "mulran", "--root", str(d / "mulran"), "--use-gps",
+            "--num-ds-points", "8192", "--map-capacity-log2", "19", "--out", str(out / "mulran")]
+    print(f"  mulran: run_slam {' '.join(argv)}")
+    mulran = _cli_result(*_cli_run(argv), gt_p)
+    print("  mulran: " + json.dumps(mulran))
+    _fail("bag phase, mulran", {
+        "50 scans": mulran["scans"] == BAG_SHORT_SCANS,
+        "every pose finite": mulran["finite"],
+        "GPS factors > 0": mulran["gps_factors"] > 0,
+        f"ATE < {MULRAN_ATE_GATE} m": mulran["ate_m"] < MULRAN_ATE_GATE,
+    })
+
+    argv = ["--dataset", "newer-college", "--root", str(d / "figure8_short.bag"),
+            "--gt-csv", str(d / "registered_poses.csv"), "--num-ds-points", "8192",
+            "--map-capacity-log2", "19", "--out", str(out / "newer_college")]
+    print(f"  newer college: run_slam {' '.join(argv)}")
+    engine, *rest = _cli_run(argv)
+    nc = _cli_result(engine, *rest, gt_p)
+    nc["decoded"] = _decoded_equal(str(d / "figure8_short.bag"))
+    from fastliosam_tpu_torch.io.newer_college import NewerCollegeSequence
+
+    gt_csv = NewerCollegeSequence(bags=str(d / "figure8_short.bag"),
+                                  gt_csv=str(d / "registered_poses.csv")).gt
+    nc["gt_csv_rows"] = len(gt_csv["stamps"])
+    nc["gt_csv_max_diff_m"] = float(np.abs(gt_csv["poses"][:, :3, 3]
+                                           - gt_p[:BAG_SHORT_SCANS]).max())
+    del engine
+    print("  newer college: " + json.dumps(nc))
+    print(f"  ATE (Umeyama-aligned, m): bag {bag['ate_m']:.4f} (gate {BAG_ATE_GATE}), MulRan "
+          f"with GPS {mulran['ate_m']:.4f} (gate {MULRAN_ATE_GATE}), Newer College "
+          f"{nc['ate_m']:.4f} (not gated: no extrinsic applied)")
+    _fail("bag phase, newer college", {
+        "50 scans": nc["scans"] == BAG_SHORT_SCANS,
+        "every pose finite": nc["finite"],
+        "decoded scans and IMU equal BagSequence's": nc["decoded"]["equal"],
+        "ground-truth csv read": nc["gt_csv_rows"] == BAG_SHORT_SCANS
+        and nc["gt_csv_max_diff_m"] < 1e-6,
+    })
+    return {"bag": bag, "mulran": mulran, "newer_college": nc}
+
+
 def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     """Device time by kernel over the traced window, and the device's busy
     share of the window's wall time (the port runs on one stream, so the
@@ -1745,12 +2013,15 @@ def main(argv=None) -> int:
     kitti_pool = ThreadPoolExecutor(max_workers=1)
     kitti_job = kitti_pool.submit(kitti_feed)
     # the feeds take minutes of host time: two worker processes make them
-    # while the kernels build and the kernel phase runs; the pool is shut
-    # down before the engine phases, which are host-bound
-    with ProcessPoolExecutor(max_workers=2,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
+    # while the kernels build and the kernel phase runs; the bag phase's
+    # recording follows in one of them at nice 10 (as the KITTI generators
+    # run) while the engine phases run, and the pool is shut down once it
+    # is made (more worker processes at once took the 8-core host down)
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
         fig8_job = pool.submit(figure8_feed, args.scans)
         corridor_job = pool.submit(corridor_feed, args.corridor_scans)
+        bag_job = pool.submit(bag_feed, args.scans)
 
         t0 = time.perf_counter()
         build.build(build.sources())
@@ -1762,6 +2033,9 @@ def main(argv=None) -> int:
 
         with geometry_precision():
             print("kernel phase:")
+            floor = {f"{b}_blocks": launch_floor_ms(b) for b in (1, 132)}
+            print(f"  timing floor: an empty kernel (csrc/empty.cu) timed as the kernels are: "
+                  f"1 block {floor['1_blocks']:.4f} ms, 132 blocks {floor['132_blocks']:.4f} ms")
             kernels = {"nearest_neighbors": check_nn(dev, args.seed)}
             print("experiment entry point (fastliosam_tpu_torch.scripts.exp_gather):")
             kernels["take_along_axis"], exp_launches, exp_recs = experiment_phase(dev)
@@ -1770,48 +2044,57 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         fig8 = load_feed(fig8_job.result())
         corridor = load_feed(corridor_job.result())
-    print(f"feeds: figure-8 {len(fig8['stamps'])} x {fig8['xyz'].shape[1]} points, "
-          f"corridor {len(corridor['stamps'])} scans, {len(corridor['gps_t'])} fixes "
-          f"({time.perf_counter() - t0:.1f} s more to wait for)")
+        print(f"feeds: figure-8 {len(fig8['stamps'])} x {fig8['xyz'].shape[1]} points, "
+              f"corridor {len(corridor['stamps'])} scans, {len(corridor['gps_t'])} fixes "
+              f"({time.perf_counter() - t0:.1f} s more to wait for)")
 
-    with geometry_precision():
-        print("kernel phase, row gather, association and insert (on the figure-8 map):")
-        fig8_map = figure8_map(dev, fig8)
-        kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, *fig8_map[3:])
-        kernels["merged_moments"] = check_assoc(dev, fig8, fig8_map)
-        kernels["insert_claim"] = check_insert(dev, fig8, fig8_map)
-        kernels["query_cached"] = check_query(dev, fig8, fig8_map)
-        del fig8_map
-        print("per-scan phase (SlamEngine.process):")
-        per_scan = per_scan_phase(dev, fig8)
-        print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")
-        chunked = chunked_phase(dev, fig8, args.chunk)
-        print(f"GPS phase (corridor, SlamEngine.process_chunk, chunk {args.chunk}):")
-        gps = gps_phase(dev, corridor, args.chunk)
-        print("modes phase (cached + point-to-plane per scan; merged2 + multi-start chunked):")
-        modes = modes_phase(dev, fig8, args.chunk)
-        t0 = time.perf_counter()
-        kitti_root, kitti_s = kitti_job.result()
-        kitti_pool.shutdown()
-        print(f"KITTI phase ({KITTI_SCANS} scans generated in {kitti_s:.1f} s, "
-              f"{time.perf_counter() - t0:.1f} s more to wait for):")
-        kitti = kitti_phase(dev, kitti_root, args.chunk)
-        kitti["feed_s"] = kitti_s
-        if args.profile_scans > 0:
-            print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
-            per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
+        with geometry_precision():
+            print("kernel phase, row gather, association and insert (on the figure-8 map):")
+            fig8_map = figure8_map(dev, fig8)
+            kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, *fig8_map[3:])
+            kernels["merged_moments"] = check_assoc(dev, fig8, fig8_map)
+            kernels["insert_claim"] = check_insert(dev, fig8, fig8_map)
+            kernels["query_cached"] = check_query(dev, fig8, fig8_map)
+            del fig8_map
+            print("per-scan phase (SlamEngine.process):")
+            per_scan = per_scan_phase(dev, fig8)
+            print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")
+            chunked = chunked_phase(dev, fig8, args.chunk)
+            print(f"GPS phase (corridor, SlamEngine.process_chunk, chunk {args.chunk}):")
+            gps = gps_phase(dev, corridor, args.chunk)
+            print("modes phase (cached + point-to-plane per scan; merged2 + multi-start chunked):")
+            modes = modes_phase(dev, fig8, args.chunk)
+            t0 = time.perf_counter()
+            kitti_root, kitti_s = kitti_job.result()
+            kitti_pool.shutdown()
+            print(f"KITTI phase ({KITTI_SCANS} scans generated in {kitti_s:.1f} s, "
+                  f"{time.perf_counter() - t0:.1f} s more to wait for):")
+            kitti = kitti_phase(dev, kitti_root, args.chunk)
+            kitti["feed_s"] = kitti_s
+            t0 = time.perf_counter()
+            bag_dir = bag_job.result()
+            print(f"bag phase (run_slam --dataset bag|mulran|newer-college, {OS1_64[0]} x "
+                  f"{OS1_64[1]} rays; {time.perf_counter() - t0:.1f} s more to wait for the "
+                  f"recording):")
+            bag = bag_phase(dev, bag_dir)
+            if args.profile_scans > 0:
+                print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
+                per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
+    finally:
+        pool.shutdown(cancel_futures=True)
 
     paths = {"per_scan": per_scan["launches"], "chunked": chunked["launches"],
              "gps": gps["launches"], "exp_gather": exp_launches,
              **{f"modes_{k}": r["launches"] for k, r in modes.items()},
              "kitti_longrun": kitti["longrun"]["launches"],
              "kitti_resume": kitti["resume"]["launches"],
-             "kitti_localize": kitti["localize"]["launches"]}
+             "kitti_localize": kitti["localize"]["launches"],
+             **{k: r["launches"] for k, r in bag.items()}}
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
                     "gather_rows": {k: shapes[f"gather_rows_{k}"] for k in ("moments", "coords")}}
-    line = {"kernels": []}
+    line = {"kernels": [], "timing_floor_ms": floor}
     for mod in KERNEL_MODULES:
         rec = dict(mod.KERNEL)
         name = rec["name"]
@@ -1827,7 +2110,7 @@ def main(argv=None) -> int:
         args.out.write_text(json.dumps(
             {"card": card_line(), "kernels": line["kernels"], "gather_cases": gather_cases,
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
-             "modes": modes, "kitti": kitti,
+             "modes": modes, "kitti": kitti, "bag": bag, "timing_floor_ms": floor,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))
     print(json.dumps(line))

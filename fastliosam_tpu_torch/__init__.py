@@ -20,7 +20,10 @@ marginal covariance and the WGS84 geodesy — and the user's entry point
 around it: the KITTI and generic-directory readers with the native
 threaded decoder, ``drive_kitti``, result export, checkpoint/resume, the
 map localizer and the ``run_slam`` / ``localize`` / ``exp_loop_trust``
-scripts; every plane-query mode (``merged``, ``merged2``, ``merged3``,
+scripts; the ROS side (ROS1 and ROS2 bags, the sensor presets behind
+``run_slam --dataset bag``, the MulRan and Newer College readers, the
+sensor recorder with its telemetry sinks, ``bag_tools``); every
+plane-query mode (``merged``, ``merged2``, ``merged3``,
 ``cached``) and every loop-ICP mode (point-to-point, point-to-plane,
 multi-start). Every TPU (Pallas) kernel in the repository has a
 hand-written CUDA counterpart: the fused nearest-neighbour search
@@ -43,14 +46,19 @@ Subpackages:
                multi-start loop verification
   pgo          factor-graph storage + LM/PCG solver + marginal covariance
   runtime      the engine (per scan, chunked, deferred; GPS), the KITTI
-               drive loop, export and checkpoint/resume, the map localizer
-  io           KITTI / generic / PCD / pose-file readers and writers, the
-               native reader (numpy copies; ``native/fls_native.cpp``)
-  postprocess  the HTML map viewer (numpy copy)
+               drive loop, export and checkpoint/resume, the map localizer,
+               the sensor recorder and its HTTP / WebSocket telemetry sinks
+  io           KITTI / generic / MulRan / Newer College / PCD / pose-file
+               readers and writers, ROS1 and ROS2 bags and their message
+               codecs, the sensor presets, the native reader (numpy and
+               stdlib copies; ``native/fls_native.cpp``)
+  postprocess  the HTML map viewer, compressed-image decode and
+               undistortion (numpy copies)
   scripts      entry points (``python -m fastliosam_tpu_torch.scripts.run_slam``,
                ``.localize``, ``.make_kitti_synth``, ``.exp_loop_trust``,
-               ``.exp_gather``, ``.ab_trees``)
+               ``.bag_tools``, ``.exp_gather``, ``.ab_trees``)
   sim          synthetic world generator (numpy copy of the JAX package's)
+               and its writers of recordings (bag, MulRan, ground truth)
   eval         ATE / RPE metrics (numpy copy)
   convert      JAX-package state (as numpy) -> port tensors
 """

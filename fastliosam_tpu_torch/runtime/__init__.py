@@ -5,3 +5,10 @@ from .persistence import (  # noqa: F401
     load_checkpoint,
 )
 from .localizer import MapLocalizer, build_map_from_keyframes  # noqa: F401
+from .recorder import SensorRecorder, RecorderConfig  # noqa: F401
+from .telemetry import (  # noqa: F401
+    HttpSink,
+    WebSocketSink,
+    make_envelope,
+    multi_sink,
+)

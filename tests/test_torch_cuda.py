@@ -20,7 +20,9 @@ two engines from one checkpoint equal bit for bit. The row gather,
 take_along_axis and the cached-plane query are copies: equal bit for bit
 (NaN fill included). The association's merged moments: equal bit for bit
 (the kernel rounds every product and sum as the plain version does, in its
-order). The replay: two runs equal bit for bit.
+order). The replay: two runs equal bit for bit. The bag run through
+``run_slam``: the path's kernels launch, and its replay with pageable
+uploads equals it bit for bit.
 """
 import numpy as np
 import pytest
@@ -767,3 +769,39 @@ def test_kitti_checkpoint_resume_bitwise(cuda_device, tmp_path):
     np.testing.assert_array_equal(np.stack(first.realtime_traj), np.stack(restored.realtime_traj))
     np.testing.assert_array_equal(first.keyframe_poses(), restored.keyframe_poses())
     assert first.loop_pairs == restored.loop_pairs
+
+
+@pytest.mark.cuda
+def test_run_slam_bag_launches_the_path_kernels(cuda_device, tmp_path, monkeypatch):
+    """``run_slam --dataset bag`` on the card over 60 scans of the figure-8
+    recording at 256 x 64 rays (``sim/writers.py``), loops at 10 m / 2 s
+    (the 150-scan run of ``chip_smoke.py`` closes its first at 10 m / 4 s):
+    the association, the insert, the plane refresh's row gather and the
+    loop ICP's nearest neighbours each launch, and every pose is finite.
+    The run again with plain pageable ``.to(device)`` uploads in place of
+    the pinned non-blocking ones gives the same bits."""
+    from fastliosam_tpu_torch.io.presets import PRESETS
+    from fastliosam_tpu_torch.ops import KERNEL_MODULES
+    from fastliosam_tpu_torch.scripts import run_slam
+    from fastliosam_tpu_torch.sim import writers
+
+    pre = PRESETS["newer-college2020"]
+    bag = writers.write_bag(str(tmp_path / "fig8.bag"),
+                            writers.render_figure8(60, pre, 256, 64), pre, 256, 64)
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
+    argv = ["--dataset", "bag", "--preset", "newer-college2020", "--root", bag,
+            "--num-ds-points", "4096", "--map-capacity-log2", "17", "--loop-radius", "10",
+            "--loop-time-gap", "2", "--out", str(tmp_path / "out")]
+    engine, _ = run_slam.run(argv)
+    launches = {mod.KERNEL["name"]: mod.launches for mod in KERNEL_MODULES}
+    assert len(engine.realtime_traj) == 60 and len(engine.loop_attempts) >= 1
+    assert np.all(np.isfinite(np.stack(engine.realtime_traj)))
+    for name in ("merged_moments", "insert_claim", "gather_rows", "nearest_neighbors"):
+        assert launches[name] > 0, (name, launches)
+    monkeypatch.setattr(run_slam, "upload", lambda a, dev, dtype=torch.float32:
+                        torch.as_tensor(a, dtype=dtype).to(dev))
+    pageable, _ = run_slam.run(argv)
+    np.testing.assert_array_equal(np.stack(pageable.realtime_traj),
+                                  np.stack(engine.realtime_traj))
+    assert pageable.loop_pairs == engine.loop_pairs

@@ -25,7 +25,9 @@ scripts; the ROS side (ROS1 and ROS2 bags, the sensor presets behind
 sensor recorder with its telemetry sinks, ``bag_tools``); every
 plane-query mode (``merged``, ``merged2``, ``merged3``,
 ``cached``) and every loop-ICP mode (point-to-point, point-to-plane,
-multi-start). Every TPU (Pallas) kernel in the repository has a
+multi-start); and the data-parallel batched rollout
+(``eval/batch_eval.py``: B sequences in one pass a step, the map kernels
+with a lane axis). Every TPU (Pallas) kernel in the repository has a
 hand-written CUDA counterpart: the fused nearest-neighbour search
 (``csrc/nn.cu``), the row gather (``csrc/gather.cu``: the plane refresh,
 the point-to-plane ICP's reads), the association's probe-gather-merge
@@ -59,8 +61,9 @@ Subpackages:
                ``.bag_tools``, ``.exp_gather``, ``.ab_trees``)
   sim          synthetic world generator (numpy copy of the JAX package's)
                and its writers of recordings (bag, MulRan, ground truth)
-  eval         ATE / RPE metrics (numpy copy)
-  convert      JAX-package state (as numpy) -> port tensors
+  eval         ATE / RPE metrics (numpy copy), the batched rollout
+  convert      JAX-package state (as numpy) -> port tensors, and a batched
+               odometry state back
 """
 
 __version__ = "0.3.0"

@@ -4,7 +4,9 @@ Each function takes the JAX package's state as host arrays — a
 NamedTuple or dict of ``np.ndarray`` (``np.asarray`` of each JAX field) —
 and returns the port's tensors on ``device``. No JAX is needed: the caller
 does the ``np.asarray``. The tests use this to put both implementations
-into the same state mid-run.
+into the same state mid-run. :func:`odom_state_to_numpy` goes back, so a
+state can return to the JAX package (``OdomState(nav=NavState(**d["nav"]),
+vmap=VoxelMap(**d["vmap"]), ...)`` there).
 """
 from __future__ import annotations
 
@@ -44,16 +46,45 @@ def nav_state_from_numpy(nav, device=None) -> NavState:
 
 def odom_state_from_numpy(state, device=None) -> OdomState:
     """``scan_idx`` and ``initialized`` become host values (the port keeps
-    them on the host)."""
+    them on the host). A batched state, the JAX package's stacked pytree
+    (``eval/batch_eval.py: stack_states``, its leaves with a leading lane
+    dim B: ``scan_idx`` and ``initialized`` of shape ``(B,)``), becomes the
+    port's batched state: every leaf a tensor with that lane dim,
+    ``scan_idx`` int32 and ``initialized`` bool on ``device``."""
     f = _fields(state, OdomState._fields)
     dev = resolve_device(device)
+    scan_idx, initialized = np.asarray(f["scan_idx"]), np.asarray(f["initialized"])
+    if scan_idx.ndim == 1:
+        scan_idx = torch.from_numpy(scan_idx.astype(np.int32)).to(dev)
+        initialized = torch.from_numpy(initialized.astype(bool)).to(dev)
+    else:
+        scan_idx, initialized = int(scan_idx), bool(initialized)
     return OdomState(
         nav=nav_state_from_numpy(f["nav"], dev),
         vmap=voxel_map_from_numpy(f["vmap"], dev),
-        scan_idx=int(np.asarray(f["scan_idx"])),
-        initialized=bool(np.asarray(f["initialized"])),
+        scan_idx=scan_idx,
+        initialized=initialized,
         w_cv=torch.from_numpy(np.array(f["w_cv"], np.float32, copy=True)).to(dev),
     )
+
+
+def odom_state_to_numpy(state: OdomState) -> dict:
+    """The port's state (unbatched or batched) as the JAX package's leaves
+    in numpy: a dict of ``nav`` and ``vmap`` (dicts of arrays by field),
+    ``scan_idx`` (int32), ``initialized`` (bool) and ``w_cv``; host values
+    become 0-dim arrays. :func:`odom_state_from_numpy` inverts it exactly."""
+    def arr(t, dtype=None):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().numpy()
+        return np.asarray(t, dtype=dtype)
+
+    return {
+        "nav": {k: arr(v) for k, v in state.nav._asdict().items()},
+        "vmap": {k: arr(v) for k, v in state.vmap._asdict().items()},
+        "scan_idx": arr(state.scan_idx, np.int32),
+        "initialized": arr(state.initialized, bool),
+        "w_cv": arr(state.w_cv),
+    }
 
 
 def pose_graph_from_numpy(g, device=None) -> PoseGraph:

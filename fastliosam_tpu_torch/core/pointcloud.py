@@ -6,6 +6,8 @@ mask; invalid lanes hold a far-away sentinel. The downsample's output order
 decides which points survive a point budget downstream, so it reproduces
 the JAX package's order exactly: int32 packed keys, a stable sort, segment
 sums over the sorted runs and a pack-to-front scatter.
+:func:`voxel_downsample_lanes` does the same for B clouds at once, the
+lane in the high bits of the sort key.
 """
 from __future__ import annotations
 
@@ -64,17 +66,17 @@ def _padded(xyz, mask) -> Cloud:
 
 
 def _pack_voxel_keys(xyz, mask, voxel_size):
-    """Per-point voxel coords relative to the masked min corner, 10 bits per
-    axis, packed into a sortable int32 key; invalid points get the maximum
-    key so they sort to the end."""
-    big = torch.where(mask[:, None], xyz, torch.inf)
-    lo = torch.amin(big, dim=0)
+    """Per-point voxel coords relative to the masked min corner (of each
+    cloud, over any leading dims), 10 bits per axis, packed into a sortable
+    int32 key; invalid points get the maximum key so they sort to the end."""
+    big = torch.where(mask[..., None], xyz, torch.inf)
+    lo = torch.amin(big, dim=-2, keepdim=True)
     lo = torch.where(torch.isfinite(lo), lo, 0.0)
     # x * (1/voxel) as XLA compiles the JAX package's division (see
     # map/voxel_hash._voxel_coords): same voxel for boundary points
     ij = torch.floor((xyz - lo) * (1.0 / voxel_size)).to(torch.int32)
     ij = torch.clamp(ij, 0, 1022)
-    key = (ij[:, 0] << 20) | (ij[:, 1] << 10) | ij[:, 2]
+    key = (ij[..., 0] << 20) | (ij[..., 1] << 10) | ij[..., 2]
     return torch.where(mask, key, _SENTINEL_KEY).to(torch.int32)
 
 
@@ -111,6 +113,50 @@ def voxel_downsample(cloud: Cloud, voxel_size: float) -> Cloud:
     out_mask = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
     out_mask[dest] = occupied
     return Cloud(xyz=out_xyz[:n], mask=out_mask[:n])
+
+
+def voxel_downsample_lanes(cloud: Cloud, voxel_size: float) -> Cloud:
+    """:func:`voxel_downsample` of each lane of a ``(B, N, 3)`` cloud in one
+    pass: one stable sort of the keys with the lane in their high bits, the
+    segment sums of all lanes planned as one, and each lane's occupied
+    voxels packed to the front of its own rows. Lane by lane the unbatched
+    output (the same sums in the same order)."""
+    xyz, mask = cloud.xyz, cloud.mask
+    b, n = mask.shape
+    dev = xyz.device
+    lane = torch.arange(b, device=dev)[:, None]
+    keys = (lane << 32) | _pack_voxel_keys(xyz, mask, voxel_size).to(torch.int64)
+    order = torch.argsort(keys.reshape(-1), stable=True)
+    skeys = keys.reshape(-1)[order]
+    sxyz = xyz.reshape(-1, 3)[order]
+    smask = mask.reshape(-1)[order]
+    # segment ids over all lanes: lane-major, each lane's runs in key order
+    # and its invalid points one sentinel segment at its tail
+    is_start = torch.ones((b * n,), dtype=torch.int64, device=dev)
+    is_start[1:] = (skeys[1:] != skeys[:-1]).to(torch.int64)
+    seg = torch.cumsum(is_start, 0) - 1
+    w = smask.to(torch.float32)
+    acc = scatter_add(seg, torch.cat([sxyz * w[:, None], w[:, None]], dim=1), b * n,
+                      dead=~smask)
+    sums, cnts = acc[:, :3], acc[:, 3]
+    centroids = sums / torch.clamp(cnts, min=1.0)[:, None]
+    occupied = cnts > 0.0
+    # each segment's lane (duplicates write the same value), and its rank
+    # among its lane's occupied segments: segments are lane-major, so the
+    # occupied segments of the lanes before it are counted off
+    seg_lane = torch.zeros((b * n,), dtype=torch.int64, device=dev)
+    seg_lane[seg] = order // n
+    occ = occupied.to(torch.int64)
+    per_lane = torch.zeros((b,), dtype=torch.int64, device=dev).index_add_(0, seg_lane, occ)
+    before = torch.cumsum(per_lane, 0) - per_lane
+    rank = torch.cumsum(occ, 0) - 1 - before[seg_lane]
+    # row b * n takes the dropped writes
+    dest = torch.where(occupied, seg_lane * n + rank, b * n)
+    out_xyz = torch.full((b * n + 1, 3), PAD_VALUE, dtype=torch.float32, device=dev)
+    out_xyz[dest] = centroids
+    out_mask = torch.zeros((b * n + 1,), dtype=torch.bool, device=dev)
+    out_mask[dest] = occupied
+    return Cloud(xyz=out_xyz[:-1].reshape(b, n, 3), mask=out_mask[:-1].reshape(b, n))
 
 
 def voxel_downsample_points(xyz, mask, voxel_size: float):

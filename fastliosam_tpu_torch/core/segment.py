@@ -19,6 +19,14 @@ own instead of one long run.
 A plan depends only on the indices, so a caller that adds several value
 sets through the same indices (the PGO normal equations and every PCG
 matvec of one linearization) sorts once.
+
+Lanes (the batched rollout, ``eval/batch_eval.py``): B lane-major tables of
+``rows`` rows each are one flat table, lane b's local row i its row
+``b * rows + i`` (:func:`lane_rows`), and :func:`lane_plan` plans their
+scatters as one. Since the sort is stable and each lane's rows are its
+own, every run holds one lane's contributions in that lane's index order:
+each lane's sums are the unbatched plan's on that lane, bit for bit. A
+lane's drop row is its own row ``rows - 1``.
 """
 from __future__ import annotations
 
@@ -63,6 +71,23 @@ def segment_plan(index, dead=None) -> SegmentPlan:
     counts = torch.zeros((n + 1,), dtype=torch.int64, device=dev).index_add_(
         0, run, torch.ones_like(run))  # integer counts: exact in any order
     return SegmentPlan(order, index[order], run, elem_pos, head_pos, counts + 1)
+
+
+def lane_rows(index, rows: int):
+    """Flat rows (int64) of the lane-local rows ``index (B, ...)`` of a
+    lane-major table with ``rows`` rows a lane: ``b * rows + index[b]``."""
+    index = index.to(torch.int64)
+    lane = torch.arange(index.shape[0], device=index.device).reshape(
+        (-1,) + (1,) * (index.dim() - 1))
+    return index + lane * rows
+
+
+def lane_plan(index, rows: int, dead=None) -> SegmentPlan:
+    """:func:`segment_plan` of the lane-local rows ``index (B, n)`` of a
+    lane-major table with ``rows`` rows a lane (lane b's drop row is its own
+    row ``rows - 1``), for values flattened to ``(B * n, ...)``."""
+    return segment_plan(lane_rows(index, rows).reshape(-1),
+                        None if dead is None else dead.reshape(-1))
 
 
 def index_add_(table, plan: SegmentPlan, values):

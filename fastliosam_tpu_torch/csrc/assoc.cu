@@ -36,6 +36,12 @@
 // bound by two dependent L2 round trips (fingerprints, then rows) and its
 // launch.
 //
+// Lanes (the batched rollout, eval/batch_eval.py): the map is B lane-major
+// tables (fp (B, C), moments (B, C, 10)) and the queries B blocks of n/B;
+// query i belongs to lane b = i / (n/B) and probes only its own table,
+// slots b*C + ((h0 + k) & (C - 1)). With B = 1 this is the unbatched call:
+// the same launch and the same words.
+//
 // Design: one thread per query. All P x probes fingerprint loads are issued
 // before any of them is compared (their addresses do not depend on each
 // other), so they are in flight together; then the found rows are read as
@@ -58,11 +64,16 @@ template <int P>
 __global__ void __launch_bounds__(kThreads)
 merged_moments_kernel(const int32_t* __restrict__ fp, const float2* __restrict__ moments,
                       uint32_t cap_mask, const int32_t* __restrict__ pools, int n,
-                      const int32_t* __restrict__ coords0, const uint8_t* __restrict__ mask,
-                      float vs, int probes, float* __restrict__ out) {
+                      int per_lane, const int32_t* __restrict__ coords0,
+                      const uint8_t* __restrict__ mask, float vs, int probes,
+                      float* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const bool live = mask[i] != 0;
+  // this query's lane: its own table
+  const size_t base = (size_t)(i / per_lane) * ((size_t)cap_mask + 1);
+  fp += base;
+  moments += base * 5;
 
   int vc[P][3];
   uint32_t h0[P];
@@ -147,26 +158,28 @@ merged_moments_kernel(const int32_t* __restrict__ fp, const float2* __restrict__
 
 }  // namespace
 
-// fp (cap,) int32 and moments (cap, 10) f32 (cap a power of two), pools
-// (n_pools, n, 3) int32, coords0 (n, 3) int32, mask (n,) bool bytes, all
-// contiguous on the device; writes out (n, 13) f32 on `stream`. 1 <= n_pools
-// <= 8, 1 <= probes <= 8. Returns the launch's cudaError_t (0 = success).
+// fp (lanes, cap) int32 and moments (lanes, cap, 10) f32 (cap a power of
+// two), pools (n_pools, n, 3) int32, coords0 (n, 3) int32, mask (n,) bool
+// bytes, all contiguous on the device, n a multiple of lanes (lane-major
+// queries); writes out (n, 13) f32 on `stream`. 1 <= n_pools <= 8,
+// 1 <= probes <= 8. Returns the launch's cudaError_t (0 = success).
 extern "C" int merged_moments_launch(const int32_t* fp, const float* moments, long long cap,
-                                     const int32_t* pools, int n_pools, int n,
+                                     int lanes, const int32_t* pools, int n_pools, int n,
                                      const int32_t* coords0, const uint8_t* mask, float vs,
                                      int probes, float* out, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (cap <= 0 || (cap & (cap - 1)) != 0 || cap > (1LL << 31) || probes < 1 ||
-      probes > kMaxProbes)
+      probes > kMaxProbes || lanes < 1 || n % lanes != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int per_lane = n / lanes;
   const uint32_t cap_mask = (uint32_t)(cap - 1);
   const float2* m2 = reinterpret_cast<const float2*>(moments);
   const int blocks = (n + kThreads - 1) / kThreads;
 #define ASSOC_CASE(P)                                                                 \
   case P:                                                                             \
     merged_moments_kernel<P><<<blocks, kThreads, 0, stream>>>(fp, m2, cap_mask, pools, \
-                                                              n, coords0, mask, vs,   \
-                                                              probes, out);           \
+                                                              n, per_lane, coords0,   \
+                                                              mask, vs, probes, out); \
     break;
   switch (n_pools) {
     ASSOC_CASE(1)

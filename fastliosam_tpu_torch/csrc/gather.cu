@@ -22,6 +22,12 @@
 // contiguous. At 8192 rows that is well under 1 MB, so a call is bound by
 // its launch and the latency of one dependent read (index, then row).
 //
+// Lanes (the batched rollout's plane refresh, eval/batch_eval.py): a
+// lane-major table (B, C, d) and B blocks of n/B indices; row r belongs to
+// lane b = r / (n/B) and reads lane b's rows only, the index rule applied
+// within the lane. With B = 1 this is the unbatched call: the same launch
+// and the same words.
+//
 // Design (simple and right first): one thread per output word, in output
 // order, so neighbouring threads write neighbouring words (coalesced
 // stores) and read neighbouring words of the same row; a grid-stride loop
@@ -37,7 +43,7 @@ constexpr int kThreads = 256;
 template <typename Index>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const uint32_t* __restrict__ table, long long c, int d,
-                   const Index* __restrict__ idx, long long n,
+                   const Index* __restrict__ idx, long long n, long long per_lane,
                    const uint8_t* __restrict__ valid, uint32_t* __restrict__ out) {
   const long long total = n * d;
   for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x; e < total;
@@ -49,7 +55,7 @@ gather_rows_kernel(const uint32_t* __restrict__ table, long long c, int d,
       long long i = (long long)idx[r];
       if (i < 0) i += c;
       i = i < 0 ? 0 : (i >= c ? c - 1 : i);
-      v = table[i * d + col];
+      v = table[((r / per_lane) * c + i) * d + col];
     }
     out[e] = v;
   }
@@ -57,23 +63,26 @@ gather_rows_kernel(const uint32_t* __restrict__ table, long long c, int d,
 
 }  // namespace
 
-// table (c, d) 4-byte words, idx (n,) int32 (idx64 == 0) or int64, valid (n,)
-// bool bytes or null, out (n, d); all contiguous on the device. Launches on
-// `stream` and returns the launch's cudaError_t (0 = success).
-extern "C" int gather_rows_launch(const uint32_t* table, long long c, int d,
+// table (lanes, c, d) 4-byte words, idx (n,) int32 (idx64 == 0) or int64,
+// lane-major (n a multiple of lanes), valid (n,) bool bytes or null, out
+// (n, d); all contiguous on the device. Launches on `stream` and returns the
+// launch's cudaError_t (0 = success).
+extern "C" int gather_rows_launch(const uint32_t* table, long long c, int d, int lanes,
                                   const void* idx, int idx64, long long n,
                                   const uint8_t* valid, uint32_t* out,
                                   cudaStream_t stream) {
   const long long total = n * d;
   if (total <= 0) return 0;
+  if (lanes < 1 || n % lanes != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_lane = n / lanes;
   long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
   if (idx64) {
     gather_rows_kernel<int64_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        table, c, d, static_cast<const int64_t*>(idx), n, valid, out);
+        table, c, d, static_cast<const int64_t*>(idx), n, per_lane, valid, out);
   } else {
     gather_rows_kernel<int32_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        table, c, d, static_cast<const int32_t*>(idx), n, valid, out);
+        table, c, d, static_cast<const int32_t*>(idx), n, per_lane, valid, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,19 @@
 // evict_far punches a hole in a probe chain, a re-inserted voxel may claim
 // the hole ahead of its surviving older entry, which it then shadows.
 //
+// Lanes (the batched rollout, eval/batch_eval.py): B lane-major tables
+// (fp (B, C), coords (B, C, 3), moments (B, C, 10), the claim table
+// (B, C)) and B blocks of n/B points in one launch. Point i belongs to lane
+// b = i / (n/B), and every slot it touches is b*C + a lane-local slot: its
+// candidate is kept as that global slot, so a probe step wraps inside the
+// lane ((cand & ~(C - 1)) | ((cand + 1) & (C - 1))) and a bid goes to the
+// lane's own claim word. Bids stay pid + 1 with the global point index,
+// which orders a lane's points as their lane-local indices do, so each
+// lane's winners, and its results, are the unbatched call's on that lane's
+// table. sl is the lane-local slot (C where unassigned) and n_dropped one
+// count per lane. With B = 1 this is the unbatched call: the same launch
+// and the same words.
+//
 // The claim table: one int32 per slot, zeroed once per call (a
 // cudaMemsetAsync on the call's stream, before the kernel), not once per
 // round. A slot receives bids in a round only if its word was 0 when the
@@ -97,9 +110,9 @@ template <int K>
 __global__ void __launch_bounds__(kThreads)
 insert_claim_kernel(int32_t* fp, int32_t* coords, const float* __restrict__ moments,
                     const float* __restrict__ xyz, const uint8_t* __restrict__ mask, int n,
-                    uint32_t cap_mask, float inv_vs, float vs, int rounds, float max_points,
-                    int32_t* claim, long long* __restrict__ sl, float2* __restrict__ upd,
-                    int32_t* n_dropped) {
+                    int lanes, int per_lane, uint32_t cap_mask, float inv_vs, float vs,
+                    int rounds, float max_points, int32_t* claim, long long* __restrict__ sl,
+                    float2* __restrict__ upd, int32_t* n_dropped) {
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * kThreads;
   const int t = blockIdx.x * kThreads + threadIdx.x;
@@ -122,12 +135,15 @@ insert_claim_kernel(int32_t* fp, int32_t* coords, const float* __restrict__ mome
       }
       if (__ldg(mask + i)) {
         state[k] = kOpen;
-        cand[k] = voxel_keys::hash_slot(c[k][0], c[k][1], c[k][2]) & cap_mask;
+        // the global slot: lane base + lane-local slot
+        cand[k] = (uint32_t)(i / per_lane) * (cap_mask + 1u) +
+                  (voxel_keys::hash_slot(c[k][0], c[k][1], c[k][2]) & cap_mask);
         want[k] = voxel_keys::fingerprint(c[k][0], c[k][1], c[k][2]);
       }
     }
   }
-  if (t == 0) *n_dropped = 0;  // the first atomicAdd comes two barriers later
+  // the first atomicAdd comes two barriers later
+  for (int l = t; l < lanes; l += stride) n_dropped[l] = 0;
 
   for (int r = 0; r < rounds; ++r) {
     // A: adopt a matching slot, or bid for an empty one
@@ -165,7 +181,7 @@ insert_claim_kernel(int32_t* fp, int32_t* coords, const float* __restrict__ mome
       if (cur == want[k]) {
         state[k] = (int)cand[k];
       } else if (cur != 0) {
-        cand[k] = (cand[k] + 1u) & cap_mask;
+        cand[k] = (cand[k] & ~cap_mask) | ((cand[k] + 1u) & cap_mask);
       }
     }
   }
@@ -176,8 +192,14 @@ insert_claim_kernel(int32_t* fp, int32_t* coords, const float* __restrict__ mome
     const int i = t + k * stride;
     if (i >= n) continue;
     const bool assigned = state[k] >= 0;
-    dropped += state[k] == kOpen;
-    sl[i] = assigned ? (long long)state[k] : (long long)cap_mask + 1;
+    if (state[k] == kOpen) {
+      if (lanes == 1) {
+        ++dropped;
+      } else {
+        atomicAdd(n_dropped + i / per_lane, 1);
+      }
+    }
+    sl[i] = assigned ? (long long)((uint32_t)state[k] & cap_mask) : (long long)cap_mask + 1;
     const float w =
         assigned && __ldg(moments + (size_t)state[k] * 10) < max_points ? 1.0f : 0.0f;
     float rel[3];
@@ -203,6 +225,7 @@ insert_claim_kernel(int32_t* fp, int32_t* coords, const float* __restrict__ mome
     }
   }
 
+  if (lanes != 1) return;  // counted per lane above
   __shared__ int warp_sum[kWarps];
   dropped = __reduce_add_sync(0xffffffffu, dropped);
   if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = dropped;
@@ -270,30 +293,34 @@ cudaError_t plan_grid(long long n, Plan* plan) {
 
 }  // namespace
 
-// fp (cap,) int32 and coords (cap, 3) int32: the new tables, updated in
-// place (the caller passes copies); moments (cap, 10) f32, read only; xyz
-// (n, 3) f32, mask (n,) bool bytes; claim (cap,) int32 scratch, zeroed
-// here on `stream` before the kernel; writes sl (n,) int64, upd (n, 10) f32
-// (8-byte aligned) and n_dropped (one int32). All contiguous on the device; cap a power of two
-// <= 2^31, 1 <= n < 2^31 - 1, rounds >= 1. Launches on `stream`; returns the
-// launch's cudaError_t (0 = success; cudaErrorCooperativeLaunchTooLarge
-// when n points do not fit one cooperative grid).
+// fp (lanes, cap) int32 and coords (lanes, cap, 3) int32: the new tables,
+// updated in place (the caller passes copies); moments (lanes, cap, 10) f32,
+// read only; xyz (n, 3) f32, mask (n,) bool bytes, lane-major (n a multiple
+// of lanes); claim (lanes, cap) int32 scratch, zeroed here on `stream`
+// before the kernel; writes sl (n,) int64 (lane-local slots), upd (n, 10)
+// f32 (8-byte aligned) and n_dropped (lanes,) int32. All contiguous on the
+// device; cap a power of two, lanes * cap <= 2^31, 1 <= n < 2^31 - 1,
+// rounds >= 1. Launches on `stream`; returns the launch's cudaError_t (0 =
+// success; cudaErrorCooperativeLaunchTooLarge when n points do not fit one
+// cooperative grid: the call is never split).
 extern "C" int insert_claim_launch(int32_t* fp, int32_t* coords, const float* moments,
-                                   long long cap, const float* xyz, const uint8_t* mask,
-                                   int n, float inv_vs, float vs, int rounds, float max_points,
-                                   int32_t* claim, long long* sl, float* upd,
-                                   int32_t* n_dropped, cudaStream_t stream) {
-  if (cap <= 0 || (cap & (cap - 1)) != 0 || cap > (1LL << 31) || n <= 0 || rounds < 1)
+                                   long long cap, int lanes, const float* xyz,
+                                   const uint8_t* mask, int n, float inv_vs, float vs,
+                                   int rounds, float max_points, int32_t* claim, long long* sl,
+                                   float* upd, int32_t* n_dropped, cudaStream_t stream) {
+  if (cap <= 0 || (cap & (cap - 1)) != 0 || lanes < 1 || cap * lanes > (1LL << 31) ||
+      n <= 0 || n % lanes != 0 || rounds < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
   cudaError_t err = plan_grid(n, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(claim, 0, (size_t)cap * sizeof(int32_t), stream);
+  err = cudaMemsetAsync(claim, 0, (size_t)cap * lanes * sizeof(int32_t), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   uint32_t cap_mask = (uint32_t)(cap - 1);
+  int per_lane = n / lanes;
   float2* upd2 = reinterpret_cast<float2*>(upd);
-  void* args[] = {&fp, &coords, &moments, &xyz, &mask, &n, &cap_mask, &inv_vs, &vs,
-                  &rounds, &max_points, &claim, &sl, &upd2, &n_dropped};
+  void* args[] = {&fp, &coords, &moments, &xyz, &mask, &n, &lanes, &per_lane, &cap_mask,
+                  &inv_vs, &vs, &rounds, &max_points, &claim, &sl, &upd2, &n_dropped};
   err = cudaLaunchCooperativeKernel(kKernels[plan.variant], dim3(plan.blocks), dim3(kThreads),
                                     args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -25,6 +25,12 @@
 // sectors and the chosen row's three sectors (normal, d, plane_valid: three
 // arrays); plus the xyz and mask reads and the 17-byte output row.
 //
+// Lanes (the batched rollout, eval/batch_eval.py): B lane-major tables
+// (fp (B, C), normal (B, C, 3), d (B, C), plane_valid (B, C)) and B blocks
+// of n/B queries; query i belongs to lane b = i / (n/B) and reads only its
+// own table (slot 0 of that table where nothing matched). With B = 1 this
+// is the unbatched call: the same launch and the same words.
+//
 // Design: one thread per query. The probes' fingerprint loads are issued
 // before any of them is compared (their addresses do not depend on each
 // other), so they are in flight together; then the chosen row is read as
@@ -44,12 +50,18 @@ __global__ void __launch_bounds__(kThreads)
 query_cached_kernel(const int32_t* __restrict__ fp, const float* __restrict__ normal,
                     const float* __restrict__ d, const int32_t* __restrict__ plane_valid,
                     uint32_t cap_mask, const float* __restrict__ xyz,
-                    const uint8_t* __restrict__ mask, int n, float inv_vs, int probes,
-                    float* __restrict__ normal_out, float* __restrict__ d_out,
+                    const uint8_t* __restrict__ mask, int n, int per_lane, float inv_vs,
+                    int probes, float* __restrict__ normal_out, float* __restrict__ d_out,
                     uint8_t* __restrict__ valid_out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const bool live = mask[i] != 0;
+  // this query's lane: its own table
+  const size_t base = (size_t)(i / per_lane) * ((size_t)cap_mask + 1);
+  fp += base;
+  normal += 3 * base;
+  d += base;
+  plane_valid += base;
 
   int slot = -1;
   if (live) {
@@ -78,23 +90,24 @@ query_cached_kernel(const int32_t* __restrict__ fp, const float* __restrict__ no
 
 }  // namespace
 
-// fp (cap,) int32, normal (cap, 3) f32, d (cap,) f32, plane_valid (cap,)
-// int32 (cap a power of two), xyz (n, 3) f32, mask (n,) bool bytes, all
-// contiguous on the device; writes normal_out (n, 3) f32, d_out (n,) f32 and
-// valid_out (n,) bool bytes on `stream`. 1 <= probes <= 8. Returns the
-// launch's cudaError_t (0 = success).
+// fp (lanes, cap) int32, normal (lanes, cap, 3) f32, d (lanes, cap) f32,
+// plane_valid (lanes, cap) int32 (cap a power of two), xyz (n, 3) f32, mask
+// (n,) bool bytes, lane-major (n a multiple of lanes), all contiguous on the
+// device; writes normal_out (n, 3) f32, d_out (n,) f32 and valid_out (n,)
+// bool bytes on `stream`. 1 <= probes <= 8. Returns the launch's
+// cudaError_t (0 = success).
 extern "C" int query_cached_launch(const int32_t* fp, const float* normal, const float* d,
-                                   const int32_t* plane_valid, long long cap,
+                                   const int32_t* plane_valid, long long cap, int lanes,
                                    const float* xyz, const uint8_t* mask, int n,
                                    float inv_vs, int probes, float* normal_out,
                                    float* d_out, uint8_t* valid_out, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (cap <= 0 || (cap & (cap - 1)) != 0 || cap > (1LL << 31) || probes < 1 ||
-      probes > kMaxProbes)
+      probes > kMaxProbes || lanes < 1 || n % lanes != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kThreads - 1) / kThreads;
   query_cached_kernel<<<blocks, kThreads, 0, stream>>>(
-      fp, normal, d, plane_valid, (uint32_t)(cap - 1), xyz, mask, n, inv_vs, probes,
-      normal_out, d_out, valid_out);
+      fp, normal, d, plane_valid, (uint32_t)(cap - 1), xyz, mask, n, n / lanes, inv_vs,
+      probes, normal_out, d_out, valid_out);
   return static_cast<int>(cudaGetLastError());
 }

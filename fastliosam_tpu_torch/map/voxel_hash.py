@@ -25,6 +25,15 @@ plane refresh's moment and coordinate reads go through
 :func:`ops.gather_cuda.gather_rows`, the CUDA row gather. The moment
 scatter sums duplicates in a fixed order (``core/segment.py``), so the map
 is bit-deterministic run to run.
+
+Lanes (the batched rollout, ``eval/batch_eval.py``; ``jax.vmap`` of these
+functions in the JAX package): ``make_map(cfg, lanes=B)`` makes a lane-major
+map, every field ``(B, C, ...)``, one table per lane. :func:`insert`, the
+plane queries and :func:`evict_far` take it with ``(B, n, ...)`` points and
+run every lane in the same launches: the kernels take the lane axis, and
+the fixed-order scatter plans the lanes as one (lane b's rows from ``b *
+(C + 1)``, its drop row its own). Lane b's result is the unbatched call's
+on lane b's map.
 """
 from __future__ import annotations
 
@@ -57,7 +66,8 @@ class VoxelMapConfig(NamedTuple):
 
 
 class VoxelMap(NamedTuple):
-    """SoA hash table. All tensors have leading dim = capacity."""
+    """SoA hash table. All tensors have leading dim = capacity (after the
+    lane dim of a lane-major map)."""
 
     fp: torch.Tensor  # (C,) int32 fingerprint; 0 = empty, else odd
     coords: torch.Tensor  # (C, 3) int32 voxel integer coords
@@ -67,19 +77,22 @@ class VoxelMap(NamedTuple):
     plane_valid: torch.Tensor  # (C,) int32 0/1
 
 
-def make_map(cfg: VoxelMapConfig, device=None) -> VoxelMap:
+def make_map(cfg: VoxelMapConfig, device=None, lanes: int | None = None) -> VoxelMap:
+    """An empty map; with ``lanes``, a lane-major one (every field ``(lanes,
+    C, ...)``)."""
     c = cfg.capacity
     if c & (c - 1):
         raise ValueError("capacity must be a power of two")
     dev = resolve_device(device)
     z = dict(device=dev)
+    lead = (c,) if lanes is None else (lanes, c)
     return VoxelMap(
-        fp=torch.zeros((c,), dtype=torch.int32, **z),
-        coords=torch.zeros((c, 3), dtype=torch.int32, **z),
-        moments=torch.zeros((c, 10), dtype=torch.float32, **z),
-        normal=torch.zeros((c, 3), dtype=torch.float32, **z),
-        d=torch.zeros((c,), dtype=torch.float32, **z),
-        plane_valid=torch.zeros((c,), dtype=torch.int32, **z),
+        fp=torch.zeros(lead, dtype=torch.int32, **z),
+        coords=torch.zeros(lead + (3,), dtype=torch.int32, **z),
+        moments=torch.zeros(lead + (10,), dtype=torch.float32, **z),
+        normal=torch.zeros(lead + (3,), dtype=torch.float32, **z),
+        d=torch.zeros(lead, dtype=torch.float32, **z),
+        plane_valid=torch.zeros(lead, dtype=torch.int32, **z),
     )
 
 
@@ -96,10 +109,23 @@ def _unpack_sym(m6):
     )
 
 
-def _with_drop_row(t):
+def _with_drop_row(t, lane_major: bool = False):
     """``t`` plus one zero row at index ``len(t)`` that takes the writes the
-    JAX package drops (``mode="drop"`` with an out-of-bounds index)."""
-    return torch.cat([t, torch.zeros_like(t[:1])])
+    JAX package drops (``mode="drop"`` with an out-of-bounds index);
+    lane-major, one such row after each lane's table and the lanes
+    flattened: lane b's row i is row ``b * (C + 1) + i``."""
+    if not lane_major:
+        return torch.cat([t, torch.zeros_like(t[:1])])
+    return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1).reshape(
+        (-1,) + tuple(t.shape[2:]))
+
+
+def _without_drop_row(t, cap: int, lane_major: bool = False):
+    """The table of :func:`_with_drop_row`'s rows ``t``, the drop rows
+    left out (contiguous, as the kernels take a map's fields)."""
+    if not lane_major:
+        return t[:cap]
+    return t.reshape((-1, cap + 1) + tuple(t.shape[1:]))[:, :cap].contiguous()
 
 
 def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
@@ -113,41 +139,57 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     package); same-voxel losers adopt the winner's entry on the re-check,
     true collisions advance to the next probe offset. The moment scatter
     after it sums duplicates in a fixed order.
+
+    Lane-major (``m`` from ``make_map(cfg, lanes=B)``, ``xyz (B, n, 3)``,
+    ``mask (B, n)``): every lane in the same launches, ``n_dropped`` one
+    count per lane.
     """
     cap = cfg.capacity
+    lm = m.fp.dim() == 2
     fp, coords_tbl, sl, upd, n_dropped = insert_claim(
         m.fp, m.coords, m.moments, xyz.contiguous(), mask.contiguous(), cfg.voxel_size,
         max(cfg.insert_probes, cfg.claim_probes), cfg.max_points_per_voxel)
     # duplicates sum in index order on the CPU and on the card alike (no
-    # atomics: core/segment.py), so the map is bit-deterministic as in JAX
-    plan = segment.segment_plan(sl, dead=sl == cap)  # unassigned: the drop row
-    moments = segment.index_add_(_with_drop_row(m.moments), plan, upd)[:cap]
+    # atomics: core/segment.py), so the map is bit-deterministic as in JAX;
+    # unassigned points go to the (lane's) drop row
+    if lm:
+        plan = segment.lane_plan(sl, cap + 1, dead=sl == cap)
+        rows = segment.lane_rows(sl, cap + 1)
+    else:
+        plan = segment.segment_plan(sl, dead=sl == cap)
+        rows = sl
+    moments = _without_drop_row(segment.index_add_(
+        _with_drop_row(m.moments, lm), plan, upd.reshape(-1, 10)), cap, lm)
 
     m = m._replace(fp=fp, coords=coords_tbl, moments=moments)
     if refresh_planes:
         # duplicates write identical values, so the scatter is deterministic
         nrm, dd, pv = _fit_planes(m, cfg, sl)
-        normal = _with_drop_row(m.normal)
-        normal[sl] = nrm
-        d = _with_drop_row(m.d)
-        d[sl] = dd
-        plane_valid = _with_drop_row(m.plane_valid)
-        plane_valid[sl] = pv
-        m = m._replace(normal=normal[:cap], d=d[:cap], plane_valid=plane_valid[:cap])
+        normal = _with_drop_row(m.normal, lm)
+        normal[rows] = nrm
+        d = _with_drop_row(m.d, lm)
+        d[rows] = dd
+        plane_valid = _with_drop_row(m.plane_valid, lm)
+        plane_valid[rows] = pv
+        m = m._replace(normal=_without_drop_row(normal, cap, lm),
+                       d=_without_drop_row(d, cap, lm),
+                       plane_valid=_without_drop_row(plane_valid, cap, lm))
     return m, n_dropped
 
 
 def _fit_planes(m: VoxelMap, cfg: VoxelMapConfig, slots):
-    """Fit planes from the moments stored at ``slots`` (clipped gather)."""
-    mom = gather_rows(m.moments, slots)
-    c = mom[:, 0]
+    """Fit planes from the moments stored at ``slots`` (clipped gather; a
+    lane-major map's ``slots (B, n)`` are lane-local)."""
+    lm = m.fp.dim() == 2
+    mom = gather_rows(m.moments, slots, lane_major=lm)
+    c = mom[..., 0]
     safe_c = torch.clamp(c, min=1.0)
-    mean_rel = mom[:, 1:4] / safe_c[:, None]
-    cov = _unpack_sym(mom[:, 4:10]) / safe_c[:, None, None] - (
-        mean_rel[:, :, None] * mean_rel[:, None, :]
+    mean_rel = mom[..., 1:4] / safe_c[..., None]
+    cov = _unpack_sym(mom[..., 4:10]) / safe_c[..., None, None] - (
+        mean_rel[..., :, None] * mean_rel[..., None, :]
     )
     normal, lam = smallest_eigvec3(cov)
-    center = _voxel_center(gather_rows(m.coords, slots), cfg.voxel_size)
+    center = _voxel_center(gather_rows(m.coords, slots, lane_major=lm), cfg.voxel_size)
     mean_world = center + mean_rel
     d = -torch.sum(normal * mean_world, dim=-1)
     valid = (c >= cfg.min_points) & (lam[..., 0] < cfg.plane_var_thresh)
@@ -198,15 +240,16 @@ _STENCIL7 = np.array(
 def _merged_fit(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, coords0, pools):
     """Merge the moments of the voxels ``pools`` ((P, N, 3) coords),
     re-referenced to the query voxel's centre, and fit one plane per query.
-    Returns ``(normal, d, valid, rvar)``."""
-    n = xyz.shape[0]
+    Returns ``(normal, d, valid, rvar)``; lane-major, over ``(B, n)``
+    queries and ``(P, B, n, 3)`` pools."""
     c0 = _voxel_center(coords0, cfg.voxel_size)
     tot = merged_moments(m.fp, m.moments, pools, coords0, mask, cfg.voxel_size,
                          cfg.query_probes)
-    tot_c, tot_s, tot_o = tot[:, 0], tot[:, 1:4], tot[:, 4:13].reshape(n, 3, 3)
+    tot_c, tot_s = tot[..., 0], tot[..., 1:4]
+    tot_o = tot[..., 4:13].reshape(tuple(tot.shape[:-1]) + (3, 3))
     safe_c = torch.clamp(tot_c, min=1.0)
-    mean = tot_s / safe_c[:, None]
-    cov = tot_o / safe_c[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    mean = tot_s / safe_c[..., None]
+    cov = tot_o / safe_c[..., None, None] - mean[..., :, None] * mean[..., None, :]
     normal, lam = smallest_eigvec3(cov)
     mean_world = c0 + mean
     d = -torch.sum(normal * mean_world, dim=-1)
@@ -217,10 +260,11 @@ def _merged_fit(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, coords0, pools):
 
 def merged_pools(xyz, voxel_size):
     """``(coords0 (N, 3), pools (7, N, 3))``: each query's voxel and the
-    7-voxel face stencil around it, the pools of :func:`query_planes_merged`."""
+    7-voxel face stencil around it, the pools of :func:`query_planes_merged`
+    (over any leading dims of ``xyz``, as the two below)."""
     coords0 = _voxel_coords(xyz, voxel_size)
     pools = torch.stack([
-        torch.stack([coords0[:, i] + int(off[i]) for i in range(3)], dim=-1)
+        torch.stack([coords0[..., i] + int(off[i]) for i in range(3)], dim=-1)
         for off in _STENCIL7
     ])
     return coords0, pools
@@ -234,9 +278,9 @@ def merged2_pools(xyz, voxel_size):
     coords0 = _voxel_coords(xyz, voxel_size)
     off = xyz - _voxel_center(coords0, voxel_size)
     ax = torch.argmax(torch.abs(off), dim=-1)
-    onehot = (torch.arange(3, device=xyz.device)[None, :] == ax[:, None]).to(torch.int32)
+    onehot = (torch.arange(3, device=xyz.device) == ax[..., None]).to(torch.int32)
     step = torch.sign(torch.sum(off * onehot, dim=-1)).to(torch.int32)
-    return coords0, torch.stack((coords0, coords0 + step[:, None] * onehot))
+    return coords0, torch.stack((coords0, coords0 + step[..., None] * onehot))
 
 
 def merged3_pools(xyz, voxel_size):
@@ -248,10 +292,10 @@ def merged3_pools(xyz, voxel_size):
     aoff = torch.abs(off)
     axes = torch.arange(3, device=xyz.device)
     ax1 = torch.argmax(aoff, dim=-1)
-    oh1 = (axes[None, :] == ax1[:, None]).to(torch.float32)
+    oh1 = (axes == ax1[..., None]).to(torch.float32)
     # second-largest axis: mask out the winner and argmax again
     ax2 = torch.argmax(aoff * (1.0 - oh1) - oh1, dim=-1)
-    oh2 = (axes[None, :] == ax2[:, None]).to(torch.float32)
+    oh2 = (axes == ax2[..., None]).to(torch.float32)
     sgn = torch.sign(off)
     nb1 = coords0 + (sgn * oh1).to(torch.int32)
     nb2 = coords0 + (sgn * oh2).to(torch.int32)
@@ -276,18 +320,24 @@ def query_planes_merged3(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask):
     return _merged_fit(m, cfg, xyz, mask, *merged3_pools(xyz, cfg.voxel_size))
 
 
-def evict_far(m: VoxelMap, cfg: VoxelMapConfig, center_xyz, det_range):
-    """Clear voxels farther than ``det_range`` from ``center_xyz``."""
+def evict_far(m: VoxelMap, cfg: VoxelMapConfig, center_xyz, det_range, do_evict=None):
+    """Clear voxels farther than ``det_range`` from ``center_xyz``.
+
+    Lane-major: ``center_xyz (B, 3)`` per lane, and ``do_evict (B,)`` bool
+    (the JAX package's ``lax.cond`` under ``vmap``): a lane where it is
+    false keeps every word of its map (multiplied by one)."""
     centers = _voxel_center(m.coords, cfg.voxel_size)
-    dist2 = torch.sum((centers - center_xyz) ** 2, dim=-1)
+    dist2 = torch.sum((centers - center_xyz[..., None, :]) ** 2, dim=-1)
     keep = (m.fp != 0) & (dist2 < det_range * det_range)
+    if do_evict is not None:
+        keep = keep | ~do_evict[..., None]
     keepf = keep.to(torch.float32)
     keepi = keep.to(torch.int32)
     return m._replace(
         fp=m.fp * keepi,
-        coords=m.coords * keepi[:, None],
-        moments=m.moments * keepf[:, None],
-        normal=m.normal * keepf[:, None],
+        coords=m.coords * keepi[..., None],
+        moments=m.moments * keepf[..., None],
+        normal=m.normal * keepf[..., None],
         d=m.d * keepf,
         plane_valid=m.plane_valid * keepi,
     )

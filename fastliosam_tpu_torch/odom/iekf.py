@@ -13,6 +13,12 @@ select between a fresh association, always computed, and the previous
 one: the same result for one more association pass per gated iteration
 that the gate would have skipped. Linear algebra uses the ``*_ex`` forms,
 which skip the error check that would otherwise sync with the device.
+
+:func:`iekf_update` also takes B lanes at once (the batched rollout,
+``eval/batch_eval.py``): a batched state, ``(B, n)`` points and a
+lane-major map. Every operation runs over the leading lane dim, each lane
+has its own lever arm ``r_max``, and the re-query gate is the device-side
+select, per lane (the JAX package's ``lax.cond`` under ``vmap``).
 """
 from __future__ import annotations
 
@@ -21,14 +27,15 @@ import torch
 from ..core.eigh3 import eigh3
 from ..map import voxel_hash as vh
 from ..utils.sync import host_read
-from .state import NavState, OdomConfig, boxminus, boxplus
+from .state import NavState, OdomConfig, boxminus, boxplus, matvec
 
 
 def _query_planes(x, pts_body, mask, vmap, map_cfg, cfg: OdomConfig):
     """``(normal, d, valid, rvar)`` of each point's plane at state ``x``;
     ``rvar`` is 0 in the cached single-voxel mode, whose stored planes carry
-    no moment record."""
-    pw = pts_body @ x.R.T + x.p
+    no moment record. Batched states take ``(B, n, 3)`` points and a
+    lane-major map."""
+    pw = pts_body @ x.R.mT + x.p[..., None, :]
     if cfg.query_mode == "merged":
         return vh.query_planes_merged(vmap, map_cfg, pw, mask)
     if cfg.query_mode == "merged2":
@@ -37,6 +44,69 @@ def _query_planes(x, pts_body, mask, vmap, map_cfg, cfg: OdomConfig):
         return vh.query_planes_merged3(vmap, map_cfg, pw, mask)
     n, d, valid = vh.query_planes(vmap, map_cfg, pw, mask)
     return n, d, valid, torch.zeros(valid.shape, dtype=torch.float32, device=valid.device)
+
+
+def _degeneracy_remap(G, bvec, n, valid, rvar, cfg: OdomConfig, eye3):
+    """Project the translation block of the measurement system onto its
+    observable subspace, from confident evidence only (see the JAX
+    docstring); over leading lane dims."""
+    dev = G.device
+    wc = (
+        valid & (rvar < cfg.degen_conf_ratio * cfg.point_cov)
+    ).to(torch.float32) * (1.0 / cfg.point_cov)
+    Gt = (n * wc[..., None]).mT @ n
+    lam, V = eigh3(0.5 * (Gt + Gt.mT))
+    scale = torch.clamp(torch.sum(wc, dim=-1), min=1e-6)
+    thr = (cfg.degen_rel_thresh * scale)[..., None]
+    keep0 = lam > thr
+    dropped_max = torch.amax(torch.where(keep0, 0.0, lam), dim=-1, keepdim=True)
+    keep = (lam > torch.maximum(thr, 2.0 * dropped_max)).to(torch.float32)
+    proj = torch.where(
+        torch.all(keep > 0.5, dim=-1)[..., None, None], eye3,
+        (V * keep[..., None, :]) @ V.mT,
+    )
+    Q = torch.eye(G.shape[-1], dtype=G.dtype, device=dev).expand(G.shape).contiguous()
+    Q[..., 3:6, 3:6] = proj
+    return Q @ G @ Q, matvec(Q, bvec)
+
+
+def _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg: OdomConfig, eye3):
+    """One iteration's MAP step at the association ``planes``: residuals
+    and weights, the Jacobian's Gram matrix and rhs (with the degeneracy
+    remap), the 24x24 solve. Returns ``(x_next, dx, S, valid)``."""
+    plane_n, plane_d, assoc, rvar = planes
+    pw = q_b @ x.R.mT + x.p[..., None, :]
+    n = plane_n
+    r = torch.sum(n * pw, dim=-1) + plane_d
+    valid = assoc & (torch.abs(r) < cfg.max_residual)
+    w = valid.to(torch.float32) / (cfg.point_cov + rvar)
+    v = n @ x.R  # Rᵀ n per point
+    cols = [torch.linalg.cross(q_b, v, dim=-1), n]
+    if cfg.extrinsic_est_en:
+        v_ext = v @ x.R_ext
+        cols.append(torch.linalg.cross(p_l, v_ext, dim=-1))
+        cols.append(v)
+    A = torch.cat(cols, dim=-1)
+    Aw = A * w[..., None]
+    G = A.mT @ Aw
+    bvec = matvec(Aw.mT, r)
+    if cfg.degen_rel_thresh > 0.0:
+        G, bvec = _degeneracy_remap(G, bvec, n, valid, rvar, cfg, eye3)
+    # state columns of the Jacobian: pose (0:6) and, when estimated, the
+    # extrinsic (18:24) — slices, so nothing is uploaded per scan
+    cols_of = [slice(0, 6)] + ([slice(18, 24)] if cfg.extrinsic_est_en else [])
+    lead = tuple(G.shape[:-2])
+    HtRH = torch.zeros(lead + (24, 24), dtype=torch.float32, device=G.device)
+    Htr = torch.zeros(lead + (24,), dtype=torch.float32, device=G.device)
+    for a, sa in enumerate(cols_of):
+        Htr[..., sa] = bvec[..., 6 * a: 6 * a + 6]
+        for b, sb in enumerate(cols_of):
+            HtRH[..., sa, sb] = G[..., 6 * a: 6 * a + 6, 6 * b: 6 * b + 6]
+    dxi = boxminus(x, x_prop)
+    S = HtRH + P_inv
+    rhs = -(Htr + matvec(P_inv, dxi))
+    dx = torch.linalg.solve_ex(S, rhs).result
+    return boxplus(x, dx), dx, S, valid
 
 
 def iekf_update(
@@ -48,99 +118,48 @@ def iekf_update(
     cfg: OdomConfig,
     gate_on_device: bool = False,
 ):
-    """Iterated MAP update. Returns ``(state, n_matched)``."""
+    """Iterated MAP update. Returns ``(state, n_matched)``. A batched
+    ``x_prop`` takes ``(B, n, 3)`` points with ``(B, n)`` masks and a
+    lane-major map, needs ``gate_on_device``, and returns ``n_matched
+    (B,)``."""
+    if x_prop.R.dim() > 2 and not gate_on_device and cfg.requery_thresh > 0.0:
+        raise ValueError("a batched update gates its re-query per lane: pass gate_on_device")
     dev = pts_body.device
     P_inv = torch.linalg.inv_ex(x_prop.P).inverse
     x = x_prop
-    inv_R = 1.0 / cfg.point_cov
 
-    plane_n, plane_d, assoc, rvar = _query_planes(
-        x, pts_body, mask, vmap, map_cfg, cfg
-    )
+    planes = _query_planes(x, pts_body, mask, vmap, map_cfg, cfg)
     # LiDAR-frame points through the propagated extrinsic; the model below
     # re-applies the current extrinsic each iteration
-    p_l = (pts_body - x_prop.t_ext) @ x_prop.R_ext
-    # lever arm of the re-query trigger: the farthest valid point
-    r_max = torch.max(
-        torch.linalg.vector_norm(pts_body, dim=-1) * mask.to(torch.float32)
-    )
-    # state columns of the Jacobian: pose (0:6) and, when estimated, the
-    # extrinsic (18:24) — slices, so nothing is uploaded per scan
-    cols_of = [slice(0, 6)] + ([slice(18, 24)] if cfg.extrinsic_est_en else [])
+    p_l = (pts_body - x_prop.t_ext[..., None, :]) @ x_prop.R_ext
+    # lever arm of the re-query trigger: the farthest valid point (per lane)
+    r_max = torch.amax(torch.linalg.vector_norm(pts_body, dim=-1) * mask.to(torch.float32),
+                       dim=-1)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     S = None
     dp_last = None  # association displacement of the previous iteration
-    n_matched = torch.zeros((), dtype=torch.int32, device=dev)
+    n_matched = torch.zeros(mask.shape[:-1], dtype=torch.int32, device=dev)
     for it in range(cfg.max_iteration):
-        q_b = p_l @ x.R_ext.T + x.t_ext if cfg.extrinsic_est_en else pts_body
+        q_b = p_l @ x.R_ext.mT + x.t_ext[..., None, :] if cfg.extrinsic_est_en else pts_body
         if 0 < it <= cfg.requery_iters:
             # adaptive: re-associate only when the previous step moved far
             # enough to invalidate the association
             if cfg.requery_thresh <= 0.0:
-                plane_n, plane_d, assoc, rvar = _query_planes(
-                    x, q_b, mask, vmap, map_cfg, cfg
-                )
+                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg)
             elif gate_on_device:
                 fresh = _query_planes(x, q_b, mask, vmap, map_cfg, cfg)
                 moved = dp_last > cfg.requery_thresh
-                plane_n, plane_d, assoc, rvar = (
-                    torch.where(moved, a, b)
-                    for a, b in zip(fresh, (plane_n, plane_d, assoc, rvar))
+                planes = tuple(
+                    torch.where(moved.reshape(moved.shape + (1,) * (a.dim() - moved.dim())), a, b)
+                    for a, b in zip(fresh, planes)
                 )
             elif bool(host_read(dp_last > cfg.requery_thresh)):  # one host read
-                plane_n, plane_d, assoc, rvar = _query_planes(
-                    x, q_b, mask, vmap, map_cfg, cfg
-                )
-        pw = q_b @ x.R.T + x.p
-        n = plane_n
-        r = torch.sum(n * pw, dim=-1) + plane_d
-        valid = assoc & (torch.abs(r) < cfg.max_residual)
-        w = valid.to(torch.float32) / (cfg.point_cov + rvar)
-        n_matched = torch.sum(valid.to(torch.int32))
-        v = n @ x.R  # Rᵀ n per point
-        cols = [torch.linalg.cross(q_b, v, dim=-1), n]
-        if cfg.extrinsic_est_en:
-            v_ext = v @ x.R_ext
-            cols.append(torch.linalg.cross(p_l, v_ext, dim=-1))
-            cols.append(v)
-        A = torch.cat(cols, dim=-1)
-        Aw = A * w[:, None]
-        G = A.T @ Aw
-        bvec = Aw.T @ r
-        if cfg.degen_rel_thresh > 0.0:
-            # degeneracy-aware remap from confident evidence only (see the
-            # JAX docstring): project the translation block of the
-            # measurement system onto the observable subspace
-            wc = (
-                valid & (rvar < cfg.degen_conf_ratio * cfg.point_cov)
-            ).to(torch.float32) * inv_R
-            Gt = (n * wc[:, None]).T @ n
-            lam, V = eigh3(0.5 * (Gt + Gt.T))
-            scale = torch.clamp(torch.sum(wc), min=1e-6)
-            thr = cfg.degen_rel_thresh * scale
-            keep0 = lam > thr
-            dropped_max = torch.max(torch.where(keep0, 0.0, lam))
-            keep = (lam > torch.maximum(thr, 2.0 * dropped_max)).to(torch.float32)
-            proj = torch.where(
-                torch.all(keep > 0.5), eye3, (V * keep[None, :]) @ V.T
-            )
-            Q = torch.eye(G.shape[0], dtype=G.dtype, device=dev)
-            Q[3:6, 3:6] = proj
-            G = Q @ G @ Q
-            bvec = Q @ bvec
-        HtRH = torch.zeros((24, 24), dtype=torch.float32, device=dev)
-        Htr = torch.zeros((24,), dtype=torch.float32, device=dev)
-        for a, sa in enumerate(cols_of):
-            Htr[sa] = bvec[6 * a: 6 * a + 6]
-            for b, sb in enumerate(cols_of):
-                HtRH[sa, sb] = G[6 * a: 6 * a + 6, 6 * b: 6 * b + 6]
-        dxi = boxminus(x, x_prop)
-        S = HtRH + P_inv
-        rhs = -(Htr + P_inv @ dxi)
-        dx = torch.linalg.solve_ex(S, rhs).result
-        dp_last = torch.linalg.vector_norm(dx[3:6]) + r_max * torch.linalg.vector_norm(dx[0:3])
-        x = boxplus(x, dx)
+                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg)
+        x, dx, S, valid = _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg, eye3)
+        n_matched = torch.sum(valid.to(torch.int32), dim=-1)
+        dp_last = (torch.linalg.vector_norm(dx[..., 3:6], dim=-1)
+                   + r_max * torch.linalg.vector_norm(dx[..., 0:3], dim=-1))
 
     P_new = torch.linalg.inv_ex(S).inverse
-    P_new = 0.5 * (P_new + P_new.T)
+    P_new = 0.5 * (P_new + P_new.mT)
     return x._replace(P=P_new), n_matched

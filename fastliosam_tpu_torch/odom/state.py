@@ -5,6 +5,11 @@
 dg(15:18), dθ_ext(18:21), dt_ext(21:24)]``, right-perturbation rotations.
 ``OdomConfig`` has the JAX package's fields and defaults (see its
 docstrings there for the measured reasons behind each default).
+
+A batched state (the batched rollout, ``eval/batch_eval.py``) is a
+``NavState`` whose every field has a leading lane dim ``B``
+(``init_state(..., lanes=B)``); :func:`boxplus` and :func:`boxminus` take
+either.
 """
 from __future__ import annotations
 
@@ -75,7 +80,13 @@ class NavState(NamedTuple):
     P: torch.Tensor  # (24, 24) error covariance
 
 
-def init_state(g_world=None, cfg: OdomConfig | None = None, device=None) -> NavState:
+def init_state(g_world=None, cfg: OdomConfig | None = None, device=None,
+               lanes: int | None = None) -> NavState:
+    """The initial state; with ``lanes``, ``lanes`` copies of it stacked
+    along a leading lane dim."""
+    if lanes is not None:
+        one = init_state(g_world, cfg, device)
+        return NavState(*(t.expand((lanes,) + tuple(t.shape)).clone() for t in one))
     dev = resolve_device(device)
     cfg = cfg or OdomConfig()
     if g_world is None:
@@ -105,30 +116,39 @@ def init_state(g_world=None, cfg: OdomConfig | None = None, device=None) -> NavS
 
 
 def boxplus(x: NavState, dx) -> NavState:
-    """Apply a 24-dim error-state increment."""
+    """Apply a 24-dim error-state increment (``(B, 24)`` to a batched
+    state)."""
     return x._replace(
-        R=so3.normalize_matrix(x.R @ so3.exp(dx[0:3])),
-        p=x.p + dx[3:6],
-        v=x.v + dx[6:9],
-        bg=x.bg + dx[9:12],
-        ba=x.ba + dx[12:15],
-        g=x.g + dx[15:18],
-        R_ext=so3.normalize_matrix(x.R_ext @ so3.exp(dx[18:21])),
-        t_ext=x.t_ext + dx[21:24],
+        R=so3.normalize_matrix(x.R @ so3.exp(dx[..., 0:3])),
+        p=x.p + dx[..., 3:6],
+        v=x.v + dx[..., 6:9],
+        bg=x.bg + dx[..., 9:12],
+        ba=x.ba + dx[..., 12:15],
+        g=x.g + dx[..., 15:18],
+        R_ext=so3.normalize_matrix(x.R_ext @ so3.exp(dx[..., 18:21])),
+        t_ext=x.t_ext + dx[..., 21:24],
     )
 
 
+def matvec(M, v):
+    """``M v`` for one matrix (``mv``, the unbatched kernel) or for a stack
+    of them (a batched product)."""
+    return M @ v if M.dim() == 2 else (M @ v[..., None])[..., 0]
+
+
 def boxminus(a: NavState, b: NavState):
-    """24-dim error a ⊟ b (so that b ⊞ (a ⊟ b) == a)."""
+    """24-dim error a ⊟ b (so that b ⊞ (a ⊟ b) == a); ``(B, 24)`` for
+    batched states."""
     return torch.cat(
         [
-            so3.log(b.R.T @ a.R),
+            so3.log(b.R.mT @ a.R),
             a.p - b.p,
             a.v - b.v,
             a.bg - b.bg,
             a.ba - b.ba,
             a.g - b.g,
-            so3.log(b.R_ext.T @ a.R_ext),
+            so3.log(b.R_ext.mT @ a.R_ext),
             a.t_ext - b.t_ext,
-        ]
+        ],
+        dim=-1,
     )

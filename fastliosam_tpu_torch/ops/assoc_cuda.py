@@ -13,6 +13,12 @@ gathers that stood in for the Pallas TPU kernels
 :func:`merged_moments` launches the kernel for CUDA tensors (or raises)
 and runs the plain version only for tensors on the CPU; there is no
 fallback from one to the other.
+
+Lanes (the batched rollout, ``eval/batch_eval.py``): a lane-major map
+(``fp (B, C)``, ``moments (B, C, 10)``) with ``(B, n)`` queries (``pools
+(P, B, n, 3)``, ``coords0 (B, n, 3)``, ``mask (B, n)``) is one launch over
+the B·n queries, each probing only its own lane's table; lane b's rows
+equal the unbatched call's on lane b's table, bit for bit.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ def _lib():
     fn = lib.merged_moments_launch
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
@@ -70,19 +76,22 @@ def merged_moments_cuda(fp, moments, pools, coords0, mask, voxel_size: float, pr
     """``(N, 13)`` float32 ``[tot_c, tot_s (3), tot_o (9, row-major)]`` of
     the ``pools (P, N, 3)`` voxels found in the map ``fp (C,)`` /
     ``moments (C, 10)``, re-referenced to the centre of ``coords0 (N, 3)``,
-    for the queries where ``mask (N,)`` holds. CUDA tensors only."""
+    for the queries where ``mask (N,)`` holds; lane-major with ``fp (B,
+    C)`` (see the module docstring). CUDA tensors only."""
     global launches
-    c = fp.shape[0] if fp.dim() == 1 else 0
-    _check("fp", fp, torch.int32, (None,))
-    if c == 0 or c & (c - 1) or c > 1 << 31:
-        raise ValueError(f"fp must have a power-of-two length, got {c}")
-    _check("moments", moments, torch.float32, (c, 10))
-    _check("pools", pools, torch.int32, (None, None, 3))
-    p, n = pools.shape[0], pools.shape[1]
+    lead = tuple(fp.shape[:-1])  # () or (B,)
+    lanes = fp.shape[0] if lead else 1
+    c = fp.shape[-1] if fp.dim() in (1, 2) else 0
+    _check("fp", fp, torch.int32, lead + (None,))
+    if c == 0 or c & (c - 1) or c > 1 << 31 or lanes == 0:
+        raise ValueError(f"fp must be (C,) or (B, C), C a power of two, got {tuple(fp.shape)}")
+    _check("moments", moments, torch.float32, lead + (c, 10))
+    _check("pools", pools, torch.int32, (None,) + lead + (None, 3))
+    p, n = pools.shape[0], pools.shape[-2]
     if not 1 <= p <= MAX_POOLS:
         raise ValueError(f"pools must hold 1..{MAX_POOLS} pools, got {p}")
-    _check("coords0", coords0, torch.int32, (n, 3))
-    _check("mask", mask, torch.bool, (n,))
+    _check("coords0", coords0, torch.int32, lead + (n, 3))
+    _check("mask", mask, torch.bool, lead + (n,))
     if not 1 <= probes <= MAX_PROBES:
         raise ValueError(f"probes must be in 1..{MAX_PROBES}, got {probes}")
     dev = fp.device
@@ -90,11 +99,11 @@ def merged_moments_cuda(fp, moments, pools, coords0, mask, voxel_size: float, pr
         raise ValueError("merged_moments_cuda needs all tensors on one CUDA device")
     if moments.data_ptr() % 8:
         raise ValueError("moments must be 8-byte aligned (rows are read as float2)")
-    out = torch.empty((n, 13), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (n, 13), dtype=torch.float32, device=dev)
     fn = _lib().merged_moments_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(fp.data_ptr(), moments.data_ptr(), c, pools.data_ptr(), p, n,
+        err = fn(fp.data_ptr(), moments.data_ptr(), c, lanes, pools.data_ptr(), p, lanes * n,
                  coords0.data_ptr(), mask.data_ptr(), float(np.float32(voxel_size)),
                  int(probes), out.data_ptr(), stream)
     if err != 0:
@@ -107,33 +116,35 @@ def merged_moments_ref(fp, moments, pools, coords0, mask, voxel_size: float, pro
     """Plain version: per pool, ``probes`` fingerprint reads (first match
     in probe order, only where ``mask`` holds), the moment read (zeros
     where nothing matched), and the re-referenced sums in the order the
-    kernel keeps."""
-    n = coords0.shape[0]
+    kernel keeps; lane-major with ``fp (B, C)``, lane by lane the
+    unbatched sums."""
+    lead = tuple(coords0.shape[:-1])  # (n,) or (B, n)
     dev = coords0.device
     c0 = voxel_center(coords0, voxel_size)
-    tot_c = torch.zeros((n,), dtype=torch.float32, device=dev)
-    tot_s = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    tot_o = torch.zeros((n, 3, 3), dtype=torch.float32, device=dev)
+    tot_c = torch.zeros(lead, dtype=torch.float32, device=dev)
+    tot_s = torch.zeros(lead + (3,), dtype=torch.float32, device=dev)
+    tot_o = torch.zeros(lead + (3, 3), dtype=torch.float32, device=dev)
     for coords in pools:
         slots, found = find_slots_ref(fp, coords, mask, probes)
-        mom = gather_rows_ref(moments, slots, valid=found)  # 0 where not found
-        ci = mom[:, 0]
-        si = mom[:, 1:4]
-        xx, xy, xz, yy, yz, zz = mom[:, 4:10].unbind(-1)
-        oi = torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz], dim=-1).reshape(n, 3, 3)
+        # 0 where not found
+        mom = gather_rows_ref(moments, slots, valid=found, lane_major=fp.dim() == 2)
+        ci = mom[..., 0]
+        si = mom[..., 1:4]
+        xx, xy, xz, yy, yz, zz = mom[..., 4:10].unbind(-1)
+        oi = torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz], dim=-1).reshape(lead + (3, 3))
         # shift moments from neighbour centre c_i to the query voxel centre
         dc = voxel_center(coords, voxel_size) - c0
         tot_c = tot_c + ci
-        tot_s = tot_s + si + ci[:, None] * dc
-        cross = si[:, :, None] * dc[:, None, :]
+        tot_s = tot_s + si + ci[..., None] * dc
+        cross = si[..., :, None] * dc[..., None, :]
         tot_o = (
             tot_o
             + oi
             + cross
             + cross.transpose(-1, -2)
-            + ci[:, None, None] * (dc[:, :, None] * dc[:, None, :])
+            + ci[..., None, None] * (dc[..., :, None] * dc[..., None, :])
         )
-    return torch.cat([tot_c[:, None], tot_s, tot_o.reshape(n, 9)], dim=1)
+    return torch.cat([tot_c[..., None], tot_s, tot_o.reshape(lead + (9,))], dim=-1)
 
 
 def merged_moments(fp, moments, pools, coords0, mask, voxel_size: float, probes: int):

@@ -17,6 +17,11 @@ from one to the other.
 Index rule (JAX's for ``table[idx]``): a negative index wraps once
 (``-1`` -> ``C-1``) and what is still out of range clamps to ``[0, C-1]``.
 Rows whose ``valid`` is false come out as zeros.
+
+Lanes (the batched rollout's plane refresh): with ``lane_major``, the table
+is ``(B, C)`` or ``(B, C, D)``, one table per lane, and ``idx`` is ``(B,
+...)``; lane b's indices read lane b's table, the index rule applied within
+the lane, all lanes in one launch.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..core.segment import lane_rows
 from . import build
 
 KERNEL = {
@@ -50,9 +56,9 @@ def _lib():
     fn = lib.gather_rows_launch
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -63,14 +69,19 @@ def _valid_mask(valid, idx):
         raise ValueError(f"valid must be bool of the index shape {tuple(idx.shape)}")
 
 
-def gather_rows_cuda(table, idx, valid=None):
+def gather_rows_cuda(table, idx, valid=None, lane_major: bool = False):
     """``out[r] = table[idx[r]]`` (zero where ``valid`` is false) for a
     ``(C,)`` or ``(C, D)`` float32/int32 table and int32/int64 indices of
-    any shape. CUDA tensors only; output shape ``idx.shape + table.shape[1:]``."""
+    any shape; with ``lane_major``, a ``(B, C)`` or ``(B, C, D)`` table and
+    ``(B, ...)`` indices (see the module docstring). CUDA tensors only;
+    output shape ``idx.shape + table.shape[1:]`` (``[2:]`` lane-major)."""
     global launches
-    if table.dtype not in _WORD_TYPES or table.dim() not in (1, 2):
-        raise ValueError(f"table must be (C,) or (C, D) float32/int32, got "
-                         f"{tuple(table.shape)} {table.dtype}")
+    lanes, rows = (table.shape[0], table.shape[1:]) if lane_major else (1, table.shape)
+    if table.dtype not in _WORD_TYPES or len(rows) not in (1, 2) or lanes == 0:
+        raise ValueError(f"table must be {'(B, C) or (B, C, D)' if lane_major else '(C,) or (C, D)'}"
+                         f" float32/int32, got {tuple(table.shape)} {table.dtype}")
+    if lane_major and (idx.dim() == 0 or idx.shape[0] != lanes):
+        raise ValueError(f"idx must have the table's {lanes} lanes first, got {tuple(idx.shape)}")
     if idx.dtype not in _INDEX_TYPES:
         raise ValueError(f"idx must be int32 or int64, got {idx.dtype}")
     _valid_mask(valid, idx)
@@ -80,16 +91,16 @@ def gather_rows_cuda(table, idx, valid=None):
     dev = table.device
     if dev.type != "cuda" or idx.device != dev or (valid is not None and valid.device != dev):
         raise ValueError("gather_rows_cuda needs all tensors on one CUDA device")
-    c = table.shape[0]
+    c = rows[0]
     if c == 0:
         raise ValueError("cannot gather from an empty table")
-    d = table.shape[1] if table.dim() == 2 else 1
-    out = torch.empty(tuple(idx.shape) + tuple(table.shape[1:]), dtype=table.dtype,
+    d = rows[1] if len(rows) == 2 else 1
+    out = torch.empty(tuple(idx.shape) + tuple(rows[1:]), dtype=table.dtype,
                       device=dev)
     fn = _lib().gather_rows_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(table.data_ptr(), c, d, idx.data_ptr(), int(idx.dtype == torch.int64),
+        err = fn(table.data_ptr(), c, d, lanes, idx.data_ptr(), int(idx.dtype == torch.int64),
                  idx.numel(), None if valid is None else valid.data_ptr(),
                  out.data_ptr(), stream)
     if err != 0:
@@ -98,21 +109,24 @@ def gather_rows_cuda(table, idx, valid=None):
     return out
 
 
-def gather_rows_ref(table, idx, valid=None):
-    """Plain version: wrap negative indices once, clamp, index, zero the
-    invalid rows."""
-    c = table.shape[0]
+def gather_rows_ref(table, idx, valid=None, lane_major: bool = False):
+    """Plain version: wrap negative indices once, clamp, index (within the
+    lane, lane-major), zero the invalid rows."""
+    c = table.shape[1] if lane_major else table.shape[0]
     i = idx.to(torch.int64)
     i = torch.clamp(torch.where(i < 0, i + c, i), 0, c - 1)
-    out = table[i]
+    if lane_major:
+        out = table.reshape((-1,) + tuple(table.shape[2:]))[lane_rows(i, c)]
+    else:
+        out = table[i]
     if valid is not None:
         keep = valid.reshape(tuple(valid.shape) + (1,) * (out.dim() - valid.dim()))
         out = torch.where(keep, out, torch.zeros((), dtype=out.dtype, device=out.device))
     return out
 
 
-def gather_rows(table, idx, valid=None):
+def gather_rows(table, idx, valid=None, lane_major: bool = False):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if table.is_cuda:
-        return gather_rows_cuda(table, idx, valid)
-    return gather_rows_ref(table, idx, valid)
+        return gather_rows_cuda(table, idx, valid, lane_major)
+    return gather_rows_ref(table, idx, valid, lane_major)

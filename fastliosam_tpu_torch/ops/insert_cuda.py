@@ -15,6 +15,15 @@ per insert instead of ~220 small device operations. :func:`insert_claim`
 launches the kernel for CUDA tensors (or raises) and runs the plain
 version only for tensors on the CPU; there is no fallback from one to the
 other.
+
+Lanes (the batched rollout, ``eval/batch_eval.py``): a lane-major map
+(``fp (B, C)``, ``coords (B, C, 3)``, ``moments (B, C, 10)``) with ``(B,
+n)`` points is one cooperative launch over the B·n points; each lane
+probes, bids and claims in its own table only, so lane b's tables, slots
+(lane-local, ``C`` where unassigned), update rows and drop count (one per
+lane, ``(B,)``) are the unbatched call's on lane b's table, bit for bit.
+The launch raises where the B·n points do not fit one cooperative grid;
+it is never split.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.segment import lane_rows
 from ..core.voxel import fingerprint, hash_slot, voxel_center, voxel_coords
 from . import build
 from .gather_cuda import gather_rows_ref
@@ -49,8 +59,8 @@ def _lib():
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = [
-            p, p, p, ctypes.c_longlong, p, p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_float, p, p, p, p, p,
+            p, p, p, ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, p, p, p, p, p,
         ]
         fn.restype = ctypes.c_int
         lib.insert_claim_grid.argtypes = [ctypes.c_longlong, p, p]
@@ -74,8 +84,9 @@ def insert_claim_cuda(fp, coords, moments, xyz, mask, voxel_size: float, rounds:
     where ``mask (N,)`` holds into the map ``fp (C,)`` / ``coords (C, 3)`` /
     ``moments (C, 10)``: new tables (the inputs stay untouched), each
     point's slot (``C`` where unassigned, int64), its ``(N, 10)`` moment
-    update and the 0-dim int32 count of masked points left unassigned.
-    CUDA tensors only."""
+    update and the 0-dim int32 count of masked points left unassigned;
+    lane-major with ``fp (B, C)`` and ``xyz (B, N, 3)`` (see the module
+    docstring). CUDA tensors only."""
     fp_new, coords_new = fp.clone(), coords.clone()
     return (fp_new, coords_new) + insert_claim_into(
         fp_new, coords_new, moments, xyz, mask, voxel_size, rounds, max_points_per_voxel)
@@ -88,33 +99,36 @@ def insert_claim_into(fp, coords, moments, xyz, mask, voxel_size: float, rounds:
     launch zeroes its claim table, then runs the kernel, both on the
     current stream."""
     global launches
-    c = fp.shape[0] if fp.dim() == 1 else 0
-    _check("fp", fp, torch.int32, (None,))
-    if c == 0 or c & (c - 1) or c > 1 << 31:
-        raise ValueError(f"fp must have a power-of-two length, got {c}")
-    _check("coords", coords, torch.int32, (c, 3))
-    _check("moments", moments, torch.float32, (c, 10))
-    _check("xyz", xyz, torch.float32, (None, 3))
-    n = xyz.shape[0]
-    _check("mask", mask, torch.bool, (n,))
-    if n >= (1 << 31) - 1:
-        raise ValueError(f"too many points for one launch: {n}")
+    lead = tuple(fp.shape[:-1])  # () or (B,)
+    lanes = fp.shape[0] if lead else 1
+    c = fp.shape[-1] if fp.dim() in (1, 2) else 0
+    _check("fp", fp, torch.int32, lead + (None,))
+    if c == 0 or c & (c - 1) or lanes == 0 or lanes * c > 1 << 31:
+        raise ValueError(f"fp must be (C,) or (B, C), C a power of two, B * C <= 2^31, "
+                         f"got {tuple(fp.shape)}")
+    _check("coords", coords, torch.int32, lead + (c, 3))
+    _check("moments", moments, torch.float32, lead + (c, 10))
+    _check("xyz", xyz, torch.float32, lead + (None, 3))
+    n = xyz.shape[-2]
+    _check("mask", mask, torch.bool, lead + (n,))
+    if lanes * n >= (1 << 31) - 1:
+        raise ValueError(f"too many points for one launch: {lanes * n}")
     if int(rounds) < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     dev = fp.device
     if dev.type != "cuda" or any(t.device != dev for t in (coords, moments, xyz, mask)):
         raise ValueError("insert_claim_cuda needs all tensors on one CUDA device")
-    sl = torch.empty((n,), dtype=torch.int64, device=dev)
-    upd = torch.empty((n, 10), dtype=torch.float32, device=dev)
+    sl = torch.empty(lead + (n,), dtype=torch.int64, device=dev)
+    upd = torch.empty(lead + (n, 10), dtype=torch.float32, device=dev)
     if n == 0:
-        return sl, upd, torch.zeros((), dtype=torch.int32, device=dev)
-    n_dropped = torch.empty((), dtype=torch.int32, device=dev)  # the kernel zeroes it
-    claim = torch.empty((c,), dtype=torch.int32, device=dev)  # the launch zeroes it
+        return sl, upd, torch.zeros(lead, dtype=torch.int32, device=dev)
+    n_dropped = torch.empty(lead, dtype=torch.int32, device=dev)  # the kernel zeroes it
+    claim = torch.empty((lanes * c,), dtype=torch.int32, device=dev)  # the launch zeroes it
     fn = _lib().insert_claim_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(fp.data_ptr(), coords.data_ptr(), moments.data_ptr(), c,
-                 xyz.data_ptr(), mask.data_ptr(), n,
+        err = fn(fp.data_ptr(), coords.data_ptr(), moments.data_ptr(), c, lanes,
+                 xyz.data_ptr(), mask.data_ptr(), lanes * n,
                  float(np.float32(1.0 / voxel_size)), float(np.float32(voxel_size)),
                  int(rounds), float(np.float32(max_points_per_voxel)), claim.data_ptr(),
                  sl.data_ptr(), upd.data_ptr(), n_dropped.data_ptr(), stream)
@@ -159,49 +173,62 @@ def insert_claim_ref(fp, coords, moments, xyz, mask, voxel_size: float, rounds: 
     match, a scatter-max tournament on ``pid + 1`` for empty slots, the
     winners' integer scatter-add commit and the re-read; then the winners'
     coordinate rows, the saturation read of the old moments and the
-    moment-update rows."""
-    cap = fp.shape[0]
+    moment-update rows. Lane-major with ``fp (B, C)``: every table index is
+    the lane's own (the claim and coordinate tables flat, lane b's rows from
+    ``b * (C + 1)``, its row ``C`` taking the non-winners), lane by lane the
+    unbatched result."""
+    lm = fp.dim() == 2
+    cap = fp.shape[-1]
     dev = xyz.device
     vc = voxel_coords(xyz, voxel_size)
     h0 = hash_slot(vc, cap).to(torch.int64)
     want = fingerprint(vc)
-    n = xyz.shape[0]
-    pid1 = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    lead = tuple(xyz.shape[:-1])  # (n,) or (B, n)
+    n = lead[-1]
+    pid1 = torch.arange(1, n + 1, dtype=torch.int32, device=dev).expand(lead)
+
+    def flat(idx, rows):  # rows of a flat table of ``rows`` rows a lane
+        return lane_rows(idx, rows).reshape(-1) if lm else idx
 
     fp = fp.clone()
-    slots = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    poff = torch.zeros((n,), dtype=torch.int64, device=dev)
-    won_slot = torch.full((n,), cap, dtype=torch.int64, device=dev)
+    fp_flat = fp.reshape(-1)  # a view: the commit below writes fp
+    slots = torch.full(lead, -1, dtype=torch.int64, device=dev)
+    poff = torch.zeros(lead, dtype=torch.int64, device=dev)
+    won_slot = torch.full(lead, cap, dtype=torch.int64, device=dev)
     for _ in range(rounds):
         cand = (h0 + poff) & (cap - 1)
         unassigned = (slots < 0) & mask
-        cur = gather_rows_ref(fp, cand)
+        cur = gather_rows_ref(fp, cand, lane_major=lm)
         slots = torch.where(unassigned & (cur == want), cand, slots)
         tryclaim = unassigned & (cur == 0)
-        claim = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
-        claim.scatter_reduce_(0, cand, torch.where(tryclaim, pid1, 0), "amax")
-        won = tryclaim & (claim[cand] == pid1)
+        claim = torch.zeros((fp_flat.shape[0] // cap * (cap + 1),), dtype=torch.int32,
+                            device=dev)
+        ccand = flat(cand, cap + 1)
+        claim.scatter_reduce_(0, ccand, torch.where(tryclaim, pid1, 0).reshape(-1), "amax")
+        won = tryclaim & (claim[ccand].reshape(lead) == pid1)
         # empty slots hold fp == 0, so adding writes exactly the winner's word
-        fp.index_add_(0, cand, want * won.to(torch.int32))
+        fp_flat.index_add_(0, flat(cand, cap), (want * won.to(torch.int32)).reshape(-1))
         won_slot = torch.where(won, cand, won_slot)
-        cur2 = gather_rows_ref(fp, cand)
+        cur2 = gather_rows_ref(fp, cand, lane_major=lm)
         slots = torch.where((slots < 0) & mask & (cur2 == want), cand, slots)
         poff = torch.where(
             (slots < 0) & mask & (cur2 != 0) & (cur2 != want), poff + 1, poff
         )
-    coords_tbl = torch.cat([coords, torch.zeros_like(coords[:1])])  # row cap: no win
-    coords_tbl[won_slot] = vc  # winners hold unique slots
-    coords_tbl = coords_tbl[:cap]
+    # row cap of each lane: no win
+    coords_tbl = torch.cat([coords, torch.zeros_like(coords[..., :1, :])], dim=-2)
+    coords_flat = coords_tbl.reshape(-1, 3)  # a view
+    coords_flat[flat(won_slot, cap + 1)] = vc.reshape(-1, 3)  # winners hold unique slots
+    coords_tbl = coords_tbl[..., :cap, :].contiguous()  # as the kernel's table
 
     assigned = (slots >= 0) & mask
-    n_dropped = torch.sum(mask & ~assigned, dtype=torch.int32)
+    n_dropped = torch.sum(mask & ~assigned, dim=-1, dtype=torch.int32)
     sl = torch.where(assigned, slots, cap)
 
     # moment saturation: stop accumulating once a voxel is very full
-    room = gather_rows_ref(moments, sl)[:, 0] < max_points_per_voxel
+    room = gather_rows_ref(moments, sl, lane_major=lm)[..., 0] < max_points_per_voxel
     w = (assigned & room).to(torch.float32)
     rel = xyz - voxel_center(vc, voxel_size)
-    upd = torch.cat([torch.ones_like(w)[:, None], rel, outer6(rel)], dim=-1) * w[:, None]
+    upd = torch.cat([torch.ones_like(w)[..., None], rel, outer6(rel)], dim=-1) * w[..., None]
     return fp, coords_tbl, sl, upd, n_dropped
 
 

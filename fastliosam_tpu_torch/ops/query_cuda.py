@@ -17,6 +17,11 @@ Semantics (the JAX package's): the first probe round whose fingerprint
 matches, where ``mask`` holds (an empty slot does not end the probe); where
 nothing matched, the row of slot 0 (the clipped ``-1``), with ``valid``
 false; ``valid = found & (plane_valid > 0) & mask``.
+
+Lanes (the batched rollout's cached mode): a lane-major map (``fp (B, C)``,
+``normal (B, C, 3)``, ``d (B, C)``, ``plane_valid (B, C)``) with ``(B, n)``
+queries is one launch; each query reads only its own lane's table (its
+slot 0 where nothing matched), lane by lane the unbatched call's words.
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p,
         ]
@@ -72,31 +77,35 @@ def _check(name, t, dtype, shape):
 def query_cached_cuda(fp, normal, d, plane_valid, xyz, mask, voxel_size: float, probes: int):
     """``(normal (N, 3), d (N,), valid (N,) bool)`` of the cached planes of
     the voxels of ``xyz (N, 3)`` in the map ``fp (C,)`` / ``normal (C, 3)`` /
-    ``d (C,)`` / ``plane_valid (C,)``. CUDA tensors only."""
+    ``d (C,)`` / ``plane_valid (C,)``; lane-major with ``fp (B, C)`` and
+    ``xyz (B, N, 3)`` (see the module docstring). CUDA tensors only."""
     global launches
-    c = fp.shape[0] if fp.dim() == 1 else 0
-    _check("fp", fp, torch.int32, (None,))
-    if c == 0 or c & (c - 1) or c > 1 << 31:
-        raise ValueError(f"fp must have a power-of-two length, got {c}")
-    _check("normal", normal, torch.float32, (c, 3))
-    _check("d", d, torch.float32, (c,))
-    _check("plane_valid", plane_valid, torch.int32, (c,))
-    _check("xyz", xyz, torch.float32, (None, 3))
-    n = xyz.shape[0]
-    _check("mask", mask, torch.bool, (n,))
+    lead = tuple(fp.shape[:-1])  # () or (B,)
+    lanes = fp.shape[0] if lead else 1
+    c = fp.shape[-1] if fp.dim() in (1, 2) else 0
+    _check("fp", fp, torch.int32, lead + (None,))
+    if c == 0 or c & (c - 1) or c > 1 << 31 or lanes == 0:
+        raise ValueError(f"fp must be (C,) or (B, C), C a power of two, got {tuple(fp.shape)}")
+    _check("normal", normal, torch.float32, lead + (c, 3))
+    _check("d", d, torch.float32, lead + (c,))
+    _check("plane_valid", plane_valid, torch.int32, lead + (c,))
+    _check("xyz", xyz, torch.float32, lead + (None, 3))
+    n = xyz.shape[-2]
+    _check("mask", mask, torch.bool, lead + (n,))
     if not 1 <= probes <= MAX_PROBES:
         raise ValueError(f"probes must be in 1..{MAX_PROBES}, got {probes}")
     dev = fp.device
     if dev.type != "cuda" or any(t.device != dev for t in (normal, d, plane_valid, xyz, mask)):
         raise ValueError("query_cached_cuda needs all tensors on one CUDA device")
-    normal_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    d_out = torch.empty((n,), dtype=torch.float32, device=dev)
-    valid_out = torch.empty((n,), dtype=torch.bool, device=dev)
+    normal_out = torch.empty(lead + (n, 3), dtype=torch.float32, device=dev)
+    d_out = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    valid_out = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
     fn = _lib().query_cached_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(fp.data_ptr(), normal.data_ptr(), d.data_ptr(), plane_valid.data_ptr(), c,
-                 xyz.data_ptr(), mask.data_ptr(), n, float(np.float32(1.0 / voxel_size)),
+                 lanes, xyz.data_ptr(), mask.data_ptr(), lanes * n,
+                 float(np.float32(1.0 / voxel_size)),
                  int(probes), normal_out.data_ptr(), d_out.data_ptr(), valid_out.data_ptr(),
                  stream)
     if err != 0:
@@ -108,25 +117,28 @@ def query_cached_cuda(fp, normal, d, plane_valid, xyz, mask, voxel_size: float, 
 def find_slots_ref(fp, coords, mask, probes: int):
     """The JAX package's ``_find_slots``: one fingerprint gather per probe
     round, the first match where ``mask`` holds. Returns ``(slots (int64,
-    -1 where none), found)``."""
-    cap = fp.shape[0]
+    -1 where none), found)``; lane-major with ``fp (B, C)`` and ``coords
+    (B, n, 3)`` (lane-local slots)."""
+    cap = fp.shape[-1]
     h0 = hash_slot(coords, cap).to(torch.int64)
     want = fingerprint(coords)
     slots = torch.full(coords.shape[:-1], -1, dtype=torch.int64, device=coords.device)
     for p in range(probes):
         cand = (h0 + p) & (cap - 1)
-        match = gather_rows_ref(fp, cand) == want
+        match = gather_rows_ref(fp, cand, lane_major=fp.dim() == 2) == want
         slots = torch.where((slots < 0) & match & mask, cand, slots)
     return slots, slots >= 0
 
 
 def query_cached_ref(fp, normal, d, plane_valid, xyz, mask, voxel_size: float, probes: int):
     """Plain version: the slot probe, then the clipped reads of the cached
-    plane fields (slot 0 where nothing matched)."""
+    plane fields (slot 0 where nothing matched; lane by lane, lane-major)."""
     slots, found = find_slots_ref(fp, voxel_coords(xyz, voxel_size), mask, probes)
     sl = torch.clamp(slots, min=0)
-    valid = found & (gather_rows_ref(plane_valid, sl) > 0) & mask
-    return gather_rows_ref(normal, sl), gather_rows_ref(d, sl), valid
+    lm = fp.dim() == 2
+    valid = found & (gather_rows_ref(plane_valid, sl, lane_major=lm) > 0) & mask
+    return (gather_rows_ref(normal, sl, lane_major=lm), gather_rows_ref(d, sl, lane_major=lm),
+            valid)
 
 
 def query_cached(fp, normal, d, plane_valid, xyz, mask, voxel_size: float, probes: int):

@@ -805,3 +805,238 @@ def test_run_slam_bag_launches_the_path_kernels(cuda_device, tmp_path, monkeypat
     np.testing.assert_array_equal(np.stack(pageable.realtime_traj),
                                   np.stack(engine.realtime_traj))
     assert pageable.loop_pairs == engine.loop_pairs
+
+
+# ---------------------------------------------------------------------------
+# the map kernels at lane shapes (the batched rollout, eval/batch_eval.py):
+# one launch for all lanes, bit for bit against the lane-batched plain
+# version and, lane by lane, against the unbatched kernel on that lane's
+# table alone
+# ---------------------------------------------------------------------------
+def _lane_map(vh, cfg, lanes, n, half, seed):
+    """``lanes`` maps, each filled on the CPU by its own insert (planes
+    fitted) of ``n`` points of another spread, stacked lane-major."""
+    rng = np.random.default_rng(seed)
+    maps = []
+    for b in range(lanes):
+        pts = torch.from_numpy(rng.uniform(-half, half, size=(n, 3)).astype(np.float32)
+                               * (1.0 + 0.1 * b))
+        m, _ = vh.insert(vh.make_map(cfg, "cpu"), cfg, pts, torch.ones(n, dtype=torch.bool))
+        maps.append(m)
+    return vh.VoxelMap(*(torch.stack(f) for f in zip(*maps)))
+
+
+def _lane_queries_card(dev, lanes, n, half, seed, masked=0.1):
+    rng = np.random.default_rng(seed)
+    xyz = torch.from_numpy(rng.uniform(-half, half, size=(lanes, n, 3)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(lanes, n)) > masked)
+    return xyz.to(dev), mask.to(dev)
+
+
+LANE_CASES = [(1, 3001), (3, 3001), (8, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n", LANE_CASES)
+@pytest.mark.parametrize("mode", ["merged", "merged2", "merged3"])
+def test_assoc_kernel_lanes(cuda_device, lanes, n, mode):
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    cfg = vh.VoxelMapConfig(capacity=1 << 12, voxel_size=0.5, query_probes=2)
+    m = vh.VoxelMap(*(t.to(cuda_device) for t in _lane_map(vh, cfg, lanes, 3000, 8.0, lanes)))
+    xyz, mask = _lane_queries_card(cuda_device, lanes, n, 9.0, n)
+    pools_fn = {"merged": vh.merged_pools, "merged2": vh.merged2_pools,
+                "merged3": vh.merged3_pools}[mode]
+    coords0, pools = pools_fn(xyz, cfg.voxel_size)
+    before = assoc_cuda.launches
+    got = assoc_cuda.merged_moments(m.fp, m.moments, pools, coords0, mask, 0.5, 2)
+    torch.cuda.synchronize()
+    assert assoc_cuda.launches == before + 1 and got.shape == (lanes, n, 13)
+    want = assoc_cuda.merged_moments_ref(m.fp, m.moments, pools, coords0, mask, 0.5, 2)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    for b in range(lanes):
+        one = assoc_cuda.merged_moments_cuda(m.fp[b], m.moments[b], pools[:, b].contiguous(),
+                                             coords0[b], mask[b], 0.5, 2)
+        np.testing.assert_array_equal(_bits(got[b]), _bits(one))
+    assert 0 < int((got[..., 0] > 0).sum()) < lanes * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,cap,rounds", [(1, 3000, 1 << 12, 2), (3, 3001, 1 << 9, 4),
+                                                (8, 8192, 1 << 14, 2), (32, 8192, 1 << 12, 2)])
+def test_insert_kernel_lanes(cuda_device, lanes, n, cap, rounds):
+    """Up to 32 lanes x 8192 points in one cooperative launch; the tight
+    512-slot lanes drop points, each its own count."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    cfg = vh.VoxelMapConfig(capacity=cap, insert_probes=rounds, claim_probes=rounds)
+    m = vh.VoxelMap(*(t.to(cuda_device) for t in _lane_map(vh, cfg, lanes, n // 4, 6.0, cap)))
+    xyz, mask = _lane_queries_card(cuda_device, lanes, n, 6.0, lanes + n)
+    args = (m.fp, m.coords, m.moments, xyz, mask, 0.5, rounds, 1000.0)
+    blocks, per_thread = insert_cuda.insert_claim_grid(lanes * n, cuda_device)
+    assert blocks > 0 and per_thread <= 16
+    before = insert_cuda.launches
+    got = insert_cuda.insert_claim(*args)
+    torch.cuda.synchronize()
+    assert insert_cuda.launches == before + 1
+    want = insert_cuda.insert_claim_ref(*args)
+    assert got[4].shape == (lanes,)
+    for k in (0, 1, 2, 4):
+        np.testing.assert_array_equal(got[k].cpu().numpy(), want[k].cpu().numpy())
+    assigned = (want[2] < cap).cpu().numpy()
+    np.testing.assert_array_equal(_bits(got[3])[assigned], _bits(want[3])[assigned])
+    for b in range(lanes):
+        one = insert_cuda.insert_claim_cuda(m.fp[b], m.coords[b], m.moments[b], xyz[b],
+                                            mask[b], 0.5, rounds, 1000.0)
+        for k in (0, 1, 2, 4):
+            np.testing.assert_array_equal(got[k][b].cpu().numpy(), one[k].cpu().numpy())
+        np.testing.assert_array_equal(_bits(got[3][b])[assigned[b]], _bits(one[3])[assigned[b]])
+    if cap == 1 << 9:
+        assert int(got[4].min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n", LANE_CASES)
+def test_query_kernel_lanes(cuda_device, lanes, n):
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    cfg = vh.VoxelMapConfig(capacity=1 << 12, voxel_size=0.5, min_points=3)
+    m = vh.VoxelMap(*(t.to(cuda_device) for t in _lane_map(vh, cfg, lanes, 3000, 5.0, n)))
+    xyz, mask = _lane_queries_card(cuda_device, lanes, n, 6.0, lanes)
+    args = (m.fp, m.normal, m.d, m.plane_valid, xyz, mask, 0.5, 4)
+    before = query_cuda.launches
+    got = query_cuda.query_cached(*args)
+    torch.cuda.synchronize()
+    assert query_cuda.launches == before + 1
+    want = query_cuda.query_cached_ref(*args)
+
+    def words(t):  # float words as int32 bits, the bool valid flags as they are
+        return t.cpu().numpy() if t.dtype == torch.bool else _bits(t)
+
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(words(g), words(w))
+    for b in range(lanes):
+        one = query_cuda.query_cached_cuda(m.fp[b], m.normal[b], m.d[b], m.plane_valid[b],
+                                           xyz[b], mask[b], 0.5, 4)
+        for g, o in zip(got, one):
+            np.testing.assert_array_equal(words(g[b]), words(o))
+    assert 0 < int(got[2].sum()) < lanes * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,d,idx_dtype", [(1, 10, torch.int64), (3, 10, torch.int64),
+                                               (3, 0, torch.int32), (8, 3, torch.int32)])
+def test_gather_rows_kernel_lanes(cuda_device, lanes, d, idx_dtype):
+    """A lane-major table, indices out of range both ways (wrapped and
+    clamped within the lane) and rows masked by valid."""
+    rng = np.random.default_rng(lanes + d)
+    c, n = 1000, 777
+    shape = (lanes, c) + ((d,) if d else ())
+    table = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-c - 50, c + 50, size=(lanes, n))).to(idx_dtype)
+    idx = idx.to(cuda_device)
+    valid = torch.from_numpy(rng.uniform(size=(lanes, n)) > 0.2).to(cuda_device)
+    before = gather_cuda.launches
+    got = gather_cuda.gather_rows(table, idx, valid, lane_major=True)
+    torch.cuda.synchronize()
+    assert gather_cuda.launches == before + 1 and got.shape == (lanes, n) + shape[2:]
+    np.testing.assert_array_equal(
+        _bits(got), _bits(gather_cuda.gather_rows_ref(table, idx, valid, lane_major=True)))
+    for b in range(lanes):
+        np.testing.assert_array_equal(
+            _bits(got[b]), _bits(gather_cuda.gather_rows_cuda(table[b], idx[b], valid[b])))
+
+
+@pytest.mark.cuda
+def test_lane_kernels_reject_bad_inputs(cuda_device):
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    m = vh.make_map(vh.VoxelMapConfig(capacity=1 << 10), cuda_device, lanes=3)
+    xyz = torch.zeros((2, 16, 3), device=cuda_device)  # 2 lanes of points, 3 of tables
+    mask = torch.ones((2, 16), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        insert_cuda.insert_claim_cuda(m.fp, m.coords, m.moments, xyz, mask, 0.5, 2, 1000.0)
+    with pytest.raises(ValueError):
+        query_cuda.query_cached_cuda(m.fp, m.normal, m.d, m.plane_valid, xyz, mask, 0.5, 2)
+    coords0, pools = vh.merged3_pools(xyz, 0.5)
+    with pytest.raises(ValueError):
+        assoc_cuda.merged_moments_cuda(m.fp, m.moments, pools, coords0, mask, 0.5, 2)
+    with pytest.raises(ValueError):
+        gather_cuda.gather_rows_cuda(m.moments, torch.zeros((2, 5), dtype=torch.int64,
+                                                            device=cuda_device), lane_major=True)
+
+
+def _room_lanes(dev, seeds, n_scans=4):
+    """The room feed of tests/test_batch_eval.py (128 x 8 rays), one lane
+    per seed, on the card: ``(scans, imus, start states, scan_dt)``."""
+    from fastliosam_tpu_torch.eval.batch_eval import stack_states
+    from fastliosam_tpu_torch.map import VoxelMapConfig
+    from fastliosam_tpu_torch.odom import ImuBatch, OdomConfig, Scan, init_odom
+    from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+
+    map_cfg = VoxelMapConfig(capacity=1 << 14, voxel_size=0.5, min_points=4)
+    cfg = OdomConfig(point_filter_num=1, blind=0.5, filter_size_surf=0.4, num_ds_points=1024,
+                     evict_every=10_000, max_imu_per_scan=32)
+    traj = Trajectory.circle(radius=8.0, period=40.0)
+    scans, imus, states, dt = [], [], [], None
+    for seed in seeds:
+        data = simulate_sequence(PlaneWorld.room(size=24.0, height=5.0, n_boxes=5, seed=seed),
+                                 traj, SimConfig(n_azimuth=128, n_elev=8, seed=seed),
+                                 n_scans=n_scans)
+        dt = data["scan_dt"]
+        scans.append([np.stack([s[i] for s in data["scans"]]) for i in range(3)])
+        cap = 32
+        rows = []
+        for ts, gy, ac in data["imu"]:
+            k = len(ts)
+            rows.append((np.pad(ts, (0, cap - k), constant_values=1e9).astype(np.float32),
+                         np.pad(gy, ((0, cap - k), (0, 0))).astype(np.float32),
+                         np.pad(ac, ((0, cap - k), (0, 0))).astype(np.float32),
+                         np.arange(cap) < k))
+        imus.append([np.stack([r[i] for r in rows]) for i in range(4)])
+        st = init_odom(map_cfg, cfg, device=dev)
+        R0, p0 = traj.pose(0.0)
+        states.append(st._replace(nav=st.nav._replace(
+            R=torch.tensor(R0, dtype=torch.float32, device=dev),
+            p=torch.tensor(p0, dtype=torch.float32, device=dev),
+            v=torch.tensor(traj.velocity(0.0), dtype=torch.float32, device=dev))))
+    sc = Scan(*(torch.from_numpy(np.stack([s[i] for s in scans])).to(dev) for i in range(3)))
+    im = ImuBatch(*(torch.from_numpy(np.stack([s[i] for s in imus])).to(dev) for i in range(4)))
+    return sc, im, stack_states(states), dt, cfg, map_cfg
+
+
+@pytest.mark.cuda
+def test_batched_rollout_on_the_card(cuda_device):
+    """The batched rollout on the card: one association per query pass and
+    one insert per step at 1 lane and at 4; lane isolation bit for bit;
+    the replay bit for bit; each lane within 5 mm of the unbatched rollout
+    (tests/test_batch_eval.py's bound)."""
+    from fastliosam_tpu_torch.eval.batch_eval import batched_rollout
+    from fastliosam_tpu_torch.odom import ImuBatch, Scan, odom_rollout
+    from fastliosam_tpu_torch.ops import KERNEL_MODULES
+
+    def run(seeds):
+        sc, im, st, dt, cfg, map_cfg = _room_lanes(cuda_device, seeds)
+        for mod in KERNEL_MODULES:
+            mod.reset_launches()
+        fin, aux = batched_rollout(st, sc, im, dt, cfg, map_cfg, device=cuda_device)
+        torch.cuda.synchronize()
+        return aux, {m.KERNEL["name"]: m.launches for m in KERNEL_MODULES}
+
+    aux4, l4 = run([1, 7, 13, 1])
+    aux1, l1 = run([1])
+    for name in ("merged_moments", "insert_claim"):
+        assert l4[name] == l1[name] > 0
+    assert l4["insert_claim"] == 4  # one a step
+    again, _ = run([1, 7, 13, 1])
+    assert all(torch.equal(aux4[k], again[k]) for k in ("R", "p", "n_matched"))
+    other, _ = run([1, 9, 13, 1])
+    for k in ("R", "p", "n_matched"):
+        assert torch.equal(other[k][[0, 2, 3]], aux4[k][[0, 2, 3]])
+        assert torch.equal(aux4[k][0], aux4[k][3])
+    sc, im, st, dt, cfg, map_cfg = _room_lanes(cuda_device, [7])
+    one = type(st)(type(st.nav)(*(t[0] for t in st.nav)), type(st.vmap)(*(t[0] for t in st.vmap)),
+                   0, False, st.w_cv[0])
+    _, ref = odom_rollout(one, Scan(*(t[0] for t in sc)), ImuBatch(*(t[0] for t in im)), dt,
+                          cfg, map_cfg, device=cuda_device)
+    np.testing.assert_allclose(aux4["p"][1].cpu().numpy(), ref["p"].cpu().numpy(), atol=5e-3)

@@ -52,8 +52,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
   6. GPS phase: the bench's GPS corridor (``bench.py:
      build_corridor_sequence`` and ``bench_gps_corridor``; 200 of its 400
      scans by default, to keep the script inside its time), fixes through
-     WGS84 geodesy, ``process_chunk`` with GPS off and on; with GPS on at
-     least two GPS factors, a solve, and ATE < 2.0 m;
+     WGS84 geodesy, ``process_chunk`` with GPS on (the GPS-off run, which
+     gated nothing, was cut to make room for phase 11): at least two GPS
+     factors, a solve, and ATE < 2.0 m;
   7. modes phase: the figure-8 feed at the same width with the other query
      and loop-ICP modes: ``process`` per scan with the cached-plane query
      and point-to-plane loop ICP, and ``process_chunk_deferred`` with the
@@ -115,7 +116,29 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      8192 points, 2 rounds, one cooperative launch each; ``query_cached``
      8 x 8192; ``gather_rows`` of (8, 2^19, 10) rows at 8 x 8192 slots,
      beside ``torch.gather`` of the same rows), printed under ``at_lanes``
-     in the kernels line.
+     in the kernels line;
+ 11. mesh phase, mesh mode over ``torch.distributed`` (``parallel``): the
+     parent has built every kernel; 4 ranks started with ``spawn`` load
+     them (a rank that finds one missing fails) and join a gloo group on
+     ``cuda:0`` (NCCL refuses two ranks on one card); each runs
+     ``SlamEngine(mesh=make_mesh(4))`` with ``process_chunk`` (chunk 5)
+     over the 150 figure-8 scans at the per-scan phase's width (32,768
+     points a scan, 8192 iEKF points, merged3, a 2^19-slot map: 2^17 slots
+     a rank, 2 probes; 16,384-point loop submaps, so the ICP's nearest
+     neighbours run at 4096 x 16,384 a rank), loop ICP untrimmed and of a
+     fixed length (``convergence_eps`` 0), twice from ``reset()``. The
+     reference is the replicated engine with the same loop semantics on
+     the same card, run while the ranks start. Gates: the reference's
+     keyframe count, loop pairs and solve count; the realtime trajectory
+     within 0.05 m of the reference at every scan; ATE < 0.10 m; every
+     rank's trajectories equal rank 0's and each replay its first run, bit
+     for bit; the NN launched on every rank; then one NCCL rank (world size
+     1) over the first 20 scans, within 0.05 m of the reference. A failed
+     rank, a collective past its timeout or a non-zero exit fails the
+     phase. Printed: scans/s, host reads, collectives and their host ms a
+     chunk, NN launches and peak device memory per rank, the phase's time.
+     The NN kernel is also checked and timed at the rank's shape, 4096 x
+     16,384 (``at_mesh_rank_shape`` in the kernels line).
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours and the row gather (the loop closure's plane refresh) on the
@@ -129,7 +152,7 @@ the batched rollout of phase 10, the cached query, the row gather and the
 insert on its cached-mode batch). Phases 4-6 and 9 report the
 insert's, the association's and the row gather's launches per scan, and
 device operations per scan over a window traced with ``torch.profiler``
-(the last 50 scans of the replay in 4 and 5, the last 25 of the GPS-off
+(the last 50 scans of the replay in 4 and 5, the last 25 of the GPS
 run in 6, the whole replay in 9; ``engine.finish()`` included). With
 ``--profile-scans N`` an extra per-scan run, after every phase, traces its last N scans with
 ``torch.profiler``; it does not touch the launch counts. The line before
@@ -265,7 +288,17 @@ def check_nn(dev, seed: int):
     print(f"  nn {n}x{m}: {slices} slices of {slice_len}; {len(lower)} planted ties across "
           f"slice boundaries give the lower index; two launches bit-identical")
 
-    err = main[3]
+    return _nn_record(src, dst, mask, main[3])
+
+
+def _nn_record(src, dst, mask, err):
+    """The NN kernel's record at these inputs: its time, the plain
+    version's, ``cdist`` + min's and the bound."""
+    import torch
+
+    from fastliosam_tpu_torch.ops import nn_cuda
+
+    n, m = src.shape[0], dst.shape[0]
     ms = cuda_ms(lambda: nn_cuda.nearest_neighbors_cuda(src, dst, mask), reps=20)
     plain_ms = cuda_ms(lambda: nn_cuda.nearest_neighbors_ref(src, dst, mask), reps=5)
 
@@ -287,6 +320,38 @@ def check_nn(dev, seed: int):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
     }
+
+
+def check_nn_rank_shape(dev, seed: int, n: int = 4096, m: int = 16384):
+    """The NN kernel at the mesh ICP's shape a rank (a quarter of the
+    16,384 source points against the whole 16,384-point destination, ~10%
+    masked) against its plain version, timed as :func:`check_nn` times it."""
+    import torch
+
+    from fastliosam_tpu_torch.ops import nn_cuda
+
+    rng = np.random.default_rng(seed + 1)
+    src = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32) * 5).to(dev)
+    dst = torch.from_numpy(rng.normal(size=(m, 3)).astype(np.float32) * 5).to(dev)
+    mask = torch.from_numpy(rng.uniform(size=m) >= 0.1).to(dev)
+    k_idx, k_d2 = nn_cuda.nearest_neighbors_cuda(src, dst, mask)
+    r_idx, r_d2 = nn_cuda.nearest_neighbors_ref(src, dst, mask)
+    torch.cuda.synchronize()
+    if not bool(torch.isclose(k_d2, r_d2, rtol=1e-5, atol=1e-4).all()):
+        raise AssertionError(f"nn d2 mismatch at {n}x{m}")
+    diff = k_idx != r_idx
+    if bool(diff.any()):
+        s = src[diff]
+        dk = ((s - dst[k_idx[diff].long()]) ** 2).sum(-1)
+        dr = ((s - dst[r_idx[diff].long()]) ** 2).sum(-1)
+        if not bool(torch.isclose(dk, dr, rtol=1e-5, atol=1e-6).all()):
+            raise AssertionError(f"nn index mismatch (not a tie) at {n}x{m}")
+    err = float((k_d2 - r_d2).abs().max())
+    print(f"  nn {n}x{m} (the mesh ICP's shape a rank): ok, max |d2 err| {err:.3g}, "
+          f"{int(diff.sum())} tie(s)")
+    rec = _nn_record(src, dst, mask, err)
+    rec["shape"] = [n, m]
+    return rec
 
 
 def _gather_bytes(idx_np, d, c, valid=None, idx_itemsize=None):
@@ -1326,39 +1391,35 @@ def gps_fixes(feed, anchor=(22.3193, 114.1694, 10.0)):
 
 def gps_phase(dev, feed, chunk: int = 5):
     """The bench's corridor (``bench.py: bench_gps_corridor``): process_chunk
-    with GPS off, then on with the bench's GPS configuration."""
+    with the bench's GPS configuration (the GPS-off run, which gated
+    nothing, was cut to make room for the mesh phase)."""
     from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
 
     engine = make_bench_engine(dev, max_kf=256, max_between=512, max_gps=256, chunk=chunk)
     n_chunks = len(feed["stamps"]) // chunk
-    # the GPS-off run's last 5 chunks are traced (no solve runs there)
-    off, launches_off = _launch_counts(
-        lambda: run_chunks(engine, feed, dev, chunk, deferred=False,
-                           profile_from=max(0, n_chunks - 5)))
-    ate_off = _ate(engine, feed)
     fixes = gps_fixes(feed)
     engine.pgo_cfg = engine.pgo_cfg._replace(gps_huber_delta=2.0)
     engine.cfg = engine.cfg._replace(use_gps=True, gps_dist_thres=2.0, gps_noise_floor=0.25,
                                      odom_trans_sqrt_info=50.0, odom_rot_sqrt_info=1000.0)
+    # the last 5 chunks are traced
     on, launches = _launch_counts(
-        lambda: run_chunks(engine, feed, dev, chunk, deferred=False, fixes=fixes))
+        lambda: run_chunks(engine, feed, dev, chunk, deferred=False, fixes=fixes,
+                           profile_from=max(0, n_chunks - 5)))
     poses = np.stack(engine.realtime_traj)
     result = {
         "scans": on["scans"], "chunk": chunk, "fixes": len(fixes),
-        "ate_gps_off_m": ate_off, "ate_gps_on_m": _ate(engine, feed),
+        "ate_gps_on_m": _ate(engine, feed),
         "gps_factors": int(engine.graph.n_gps), "solves": engine.solve_count,
-        "keyframes": engine.kf.n, "launches": launches, "launches_gps_off": launches_off,
-        "scans_per_s_gps_off": off["scans"] / off["total_s"],
+        "keyframes": engine.kf.n, "launches": launches,
         "scans_per_s_gps_on": on["scans"] / on["total_s"],
         "solve_ms_each": 1e3 * on["solve_s"] / max(engine.solve_count, 1),
         "host_syncs_per_chunk": on["host_reads"] / on["chunks"],
         "launches_per_scan": _per_scan(launches, on["scans"]),
-        "launches_per_scan_gps_off": _per_scan(launches_off, off["scans"]),
-        "device_ops_per_scan_gps_off": _window_ops(off),
+        "device_ops_per_scan": _window_ops(on),
     }
     print("  " + json.dumps(result))
-    print(f"  corridor ATE: GPS off {ate_off:.4f} m, GPS on {result['ate_gps_on_m']:.4f} m "
-          f"(accuracy reference, JAX engine on a TPU over 400 scans: 1.8293 / 1.8664 m)")
+    print(f"  corridor ATE: GPS on {result['ate_gps_on_m']:.4f} m "
+          f"(accuracy reference, JAX engine on a TPU over 400 scans: 1.8664 m)")
     _fail("GPS phase", {
         "at least 2 GPS factors": result["gps_factors"] >= 2,
         "at least 1 solve": result["solves"] >= 1,
@@ -2435,6 +2496,240 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh phase: SlamEngine(mesh=...) over torch.distributed, 4 ranks on one card
+# ---------------------------------------------------------------------------
+MESH_RANKS = 4
+MESH_NCCL_SCANS = 20  # the NCCL run at world size 1
+MESH_TRAJ_GATE_M = 0.05  # tests/test_engine.py:318-320
+
+
+def mesh_engine(dev, chunk: int, mesh=None):
+    """The per-scan cell's engine (:func:`make_bench_engine`) with the mesh's
+    loop semantics: untrimmed loop ICP of a fixed length (``trim_fraction``
+    1.0, ``convergence_eps`` 0), as ``tests/test_engine.py:276-281`` pins;
+    with ``mesh``, in mesh mode on the rank's device."""
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
+
+    engine = make_bench_engine(None if mesh is not None else dev, chunk=chunk, mesh=mesh)
+    engine.loop_cfg = engine.loop_cfg._replace(trim_fraction=1.0, convergence_eps=0.0)
+    return engine
+
+
+def _feed_head(feed, n_scans: int) -> dict:
+    """The feed's first ``n_scans`` scans (per-scan arrays cut, the rest kept)."""
+    n = len(feed["stamps"])
+    return {k: (v[:n_scans] if getattr(v, "ndim", 0) and len(v) == n else v)
+            for k, v in feed.items()}
+
+
+def mesh_rank(rank: int, world: int, coord: str, backend: str, device: str, feed_path: str,
+              n_scans: int, chunk: int, out_path: str, go, threads: int = 2) -> None:
+    """One rank of the mesh phase (a spawned process): join the group,
+    wait for ``go``, run ``SlamEngine(mesh=make_mesh(world))`` with
+    ``process_chunk`` over the feed's first ``n_scans`` scans twice from
+    ``reset()``, and write its trajectories and counts to ``out_path``. It
+    loads the kernels the parent built and never builds one."""
+    import torch
+
+    torch.set_num_threads(threads)
+    from fastliosam_tpu_torch.ops import build
+
+    missing = [n for n in build.sources() if not build.library_path(n).exists()]
+    if missing and torch.device(device).type == "cuda":
+        raise RuntimeError(f"rank {rank}: kernels not built by the parent: {missing}")
+    from fastliosam_tpu_torch.ops import nn_cuda
+    from fastliosam_tpu_torch.parallel import init_distributed, make_mesh
+    from fastliosam_tpu_torch.utils import geometry_precision, host_reads
+
+    init_distributed(coord, world, rank, backend=backend, device=device)
+    mesh = make_mesh(world)
+    dev = mesh.device
+    if dev.type == "cpu":  # a rehearsal on the CPU: nothing to wait for
+        torch.cuda.synchronize = lambda *a, **k: None
+    feed = _feed_head(load_feed(feed_path), n_scans)
+    engine = mesh_engine(dev, chunk, mesh)
+    go.wait()
+    out = {}
+    with geometry_precision():
+        for run in ("first", "replay"):
+            mesh.reset_counts()
+            r0 = host_reads()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            res, launches = _launch_counts(
+                lambda: run_chunks(engine, feed, dev, chunk, deferred=False))
+            out[f"{run}.traj"] = np.stack(engine.realtime_traj)
+            out[f"{run}.loops"] = np.asarray(engine.loop_pairs, np.int64).reshape(-1, 2)
+            out[f"{run}.stats"] = json.dumps({
+                "scans": res["scans"], "chunks": res["chunks"], "total_s": res["total_s"],
+                "keyframes": engine.kf.n, "solves": engine.solve_count,
+                "verifications": len(engine.loop_attempts),
+                "launches": launches, "nn_launches": launches[nn_cuda.KERNEL["name"]],
+                "collectives": mesh.collectives, "collective_s": mesh.collective_s,
+                "host_reads": host_reads() - r0,
+                "solve_s": res["solve_s"], "verify_s": res["verify_s"],
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                               else 0),
+                "backend": backend, "world": world, "rank": rank,
+            })
+    np.savez(out_path, **out)
+    torch.distributed.destroy_process_group()
+
+
+def _start_ranks(ctx, world: int, backend: str, device: str, feed_path: str, n_scans: int,
+                 chunk: int, out_dir: Path, go):
+    from fastliosam_tpu_torch.parallel.distributed import free_port
+
+    coord = f"127.0.0.1:{free_port()}"
+    procs = []
+    for r in range(world):
+        p = ctx.Process(target=mesh_rank, name=f"{backend}-rank{r}", args=(
+            r, world, coord, backend, device, feed_path, n_scans, chunk,
+            str(out_dir / f"{backend}{world}_rank{r}.npz"), go))
+        p.start()
+        procs.append(p)
+    return procs
+
+
+def _join_ranks(procs, timeout_s: float) -> list:
+    """Wait for the rank processes; any non-zero exit (a failed rank, a
+    collective timeout) or a rank still alive after ``timeout_s`` fails."""
+    deadline = time.perf_counter() + timeout_s
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    alive = [p.name for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    failed = [f"{p.name} (exit {p.exitcode})" for p in procs if p.exitcode != 0]
+    if alive or failed:
+        raise AssertionError(f"mesh phase: ranks failed: {failed}; still running: {alive}")
+    return procs
+
+
+def _load_rank(path: Path) -> dict:
+    with np.load(path) as f:
+        out = dict(f)
+    for run in ("first", "replay"):
+        out[f"{run}.stats"] = json.loads(str(out[f"{run}.stats"]))
+    return out
+
+
+def mesh_phase(dev, feed_path: str, chunk: int = 5, n_scans: int | None = None,
+               rank_device: str = "cuda:0") -> dict:
+    """Mesh mode over ``torch.distributed`` (``parallel``): 4 gloo ranks on
+    one card, each ``SlamEngine(mesh=make_mesh(4))`` with ``process_chunk``
+    over the figure-8 feed at the per-scan cell's width, twice from
+    ``reset()``; the reference is the replicated engine with the same loop
+    semantics, on the same card, run while the ranks start; then one NCCL
+    rank (world size 1) over the first 20 scans."""
+    import torch
+
+    t_phase = time.perf_counter()
+    feed = load_feed(feed_path)
+    n_scans = n_scans or len(feed["stamps"])
+    feed = _feed_head(feed, n_scans)
+    out_dir = ROOT / "build" / "mesh_phase"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("*.npz"):
+        f.unlink()
+    ctx = multiprocessing.get_context("spawn")
+    go, go1 = ctx.Event(), ctx.Event()
+    ranks = _start_ranks(ctx, MESH_RANKS, "gloo", rank_device, feed_path, n_scans, chunk,
+                         out_dir, go)
+    # the NCCL rank starts now too and waits for the gloo ranks to finish
+    nccl = _start_ranks(ctx, 1, "nccl", rank_device, feed_path, min(MESH_NCCL_SCANS, n_scans),
+                        chunk, out_dir, go1)
+    try:
+        engine = mesh_engine(dev, chunk)
+        ref_run, ref_launches = _launch_counts(
+            lambda: run_chunks(engine, feed, dev, chunk, deferred=False))
+        ref = np.stack(engine.realtime_traj)
+        ref_loops = list(engine.loop_pairs)
+        ref_info = {"keyframes": engine.kf.n, "loops": len(ref_loops),
+                    "solves": engine.solve_count, "scans_per_s": ref_run["scans"] /
+                    ref_run["total_s"], "ate_m": _ate(engine, feed), "loop_pairs": ref_loops}
+        del engine
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        go.set()
+        _join_ranks(ranks, 600.0)
+        mesh_wall_s = time.perf_counter() - t0
+        go1.set()
+        _join_ranks(nccl, 300.0)
+    finally:
+        go.set()
+        go1.set()
+        for p in ranks + nccl:
+            if p.is_alive():
+                p.kill()
+    outs = [_load_rank(out_dir / f"gloo{MESH_RANKS}_rank{r}.npz") for r in range(MESH_RANKS)]
+    o1 = _load_rank(out_dir / "nccl1_rank0.npz")
+
+    o0 = outs[0]
+    s0, r0 = o0["first.stats"], o0["replay.stats"]
+    traj = o0["first.traj"]
+    dev_err = float(np.abs(traj[:, :3, 3] - ref[:, :3, 3]).max())
+    rt = traj[:, :3, 3]
+    ate = float(np.sqrt(np.mean(np.sum((rt - feed["gt_p"][: len(rt)]) ** 2, axis=1))))
+    n1 = len(o1["first.traj"])
+    nccl_err = float(np.abs(o1["first.traj"][:, :3, 3] - ref[:n1, :3, 3]).max())
+    chunks = s0["chunks"]
+    result = {
+        "ranks": MESH_RANKS, "backend": "gloo", "rank_device": rank_device,
+        "scans": s0["scans"], "chunk": chunk,
+        "scans_per_s": s0["scans"] / s0["total_s"],
+        "scans_per_s_replay": r0["scans"] / r0["total_s"],
+        "keyframes": s0["keyframes"], "loops": len(o0["first.loops"]),
+        "loop_pairs": [tuple(p) for p in o0["first.loops"].tolist()],
+        "solves": s0["solves"], "verifications": s0["verifications"],
+        "ate_m": ate, "max_dev_from_reference_m": dev_err,
+        "host_reads_per_chunk": s0["host_reads"] / chunks,
+        "collectives_per_chunk": s0["collectives"] / chunks,
+        "collective_ms_per_chunk": 1e3 * s0["collective_s"] / chunks,
+        "collective_ms_per_chunk_replay": 1e3 * r0["collective_s"] / chunks,
+        "nn_launches_per_rank": [o["first.stats"]["nn_launches"] for o in outs],
+        "peak_gib_per_rank": [o["first.stats"]["peak_bytes"] / 2**30 for o in outs],
+        "launches_per_rank": [o["first.stats"]["launches"] for o in outs],
+        "verify_s": s0["verify_s"], "solve_s": s0["solve_s"],
+        "mesh_wall_s": mesh_wall_s,
+        "reference": ref_info, "reference_launches": ref_launches,
+        "nccl": {"scans": n1, "max_dev_from_reference_m": nccl_err,
+                 "scans_per_s": o1["first.stats"]["scans"] / o1["first.stats"]["total_s"],
+                 "collectives_per_chunk": o1["first.stats"]["collectives"] /
+                 o1["first.stats"]["chunks"],
+                 "launches": o1["first.stats"]["launches"]},
+    }
+    result["phase_s"] = time.perf_counter() - t_phase
+    print("  " + json.dumps(result))
+    print(f"  mesh: {result['scans_per_s']:.2f} scans/s ({result['scans_per_s_replay']:.2f} on "
+          f"the replay; 4 ranks share one card and gloo stages every collective through host "
+          f"memory: a correctness run, not a scaling one), "
+          f"{result['collectives_per_chunk']:.1f} collectives a chunk, "
+          f"{result['collective_ms_per_chunk']:.1f} ms of them, phase {result['phase_s']:.1f} s")
+    same = all(np.array_equal(o[f"{run}.traj"], traj) and
+               np.array_equal(o[f"{run}.loops"], o0["first.loops"])
+               for o in outs for run in ("first", "replay"))
+    _fail("mesh phase", {
+        "every pose finite": bool(np.all(np.isfinite(traj))),
+        "keyframes as the reference": s0["keyframes"] == ref_info["keyframes"],
+        "loop pairs as the reference": result["loop_pairs"] == [tuple(p) for p in ref_loops],
+        "solves as the reference": s0["solves"] == ref_info["solves"],
+        "at least one loop": result["loops"] >= 1,
+        f"trajectory within {MESH_TRAJ_GATE_M} m of the reference at every scan":
+            dev_err < MESH_TRAJ_GATE_M,
+        "ATE < 0.10 m": ate < 0.10,
+        "every rank equal to rank 0 and each replay equal, bit for bit": same,
+        "nearest_neighbors launched on every rank":
+            min(result["nn_launches_per_rank"]) > 0,
+        f"NCCL world size 1 within {MESH_TRAJ_GATE_M} m of the reference":
+            nccl_err < MESH_TRAJ_GATE_M and bool(np.all(np.isfinite(o1["first.traj"]))),
+    })
+    return result
+
+
 def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     """Device time by kernel over the traced window, and the device's busy
     share of the window's wall time (the port runs on one stream, so the
@@ -2517,6 +2812,8 @@ def main(argv=None) -> int:
             print(f"  timing floor: an empty kernel (csrc/empty.cu) timed as the kernels are: "
                   f"1 block {floor['1_blocks']:.4f} ms, 132 blocks {floor['132_blocks']:.4f} ms")
             kernels = {"nearest_neighbors": check_nn(dev, args.seed)}
+            kernels["nearest_neighbors"]["at_mesh_rank_shape"] = check_nn_rank_shape(
+                dev, args.seed)
             print("experiment entry point (fastliosam_tpu_torch.scripts.exp_gather):")
             kernels["take_along_axis"], exp_launches, exp_recs = experiment_phase(dev)
             _fail("experiment entry point", {
@@ -2560,6 +2857,9 @@ def main(argv=None) -> int:
             print(f"batched phase (eval/batch_eval.py: batched_rollout, {BATCH_LANES} lanes x "
                   f"{BATCH_SCANS} figure-8 scans):")
             batched = batched_phase(dev, fig8, floor)
+            print(f"mesh phase (SlamEngine(mesh=make_mesh({MESH_RANKS})), gloo ranks on one "
+                  f"card, process_chunk, chunk {args.chunk}; then NCCL at world size 1):")
+            mesh = mesh_phase(dev, fig8_job.result(), args.chunk)
             if args.profile_scans > 0:
                 print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
                 per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
@@ -2573,7 +2873,10 @@ def main(argv=None) -> int:
              "kitti_resume": kitti["resume"]["launches"],
              "kitti_localize": kitti["localize"]["launches"],
              **{k: r["launches"] for k, r in bag.items()},
-             "batched": batched["launches"], "batched_cached": batched["cached"]["launches"]}
+             "batched": batched["launches"], "batched_cached": batched["cached"]["launches"],
+             "mesh": {k: sum(r[k] for r in mesh["launches_per_rank"])
+                      for k in mesh["launches_per_rank"][0]},
+             "mesh_nccl": mesh["nccl"]["launches"]}
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
@@ -2589,6 +2892,9 @@ def main(argv=None) -> int:
             rec["at_localizer_shape"] = at_localizer[name]
         if name in batched["kernels"]:
             rec["at_lanes"] = batched["kernels"][name]
+        if "at_mesh_rank_shape" in rec:
+            rec["at_mesh_rank_shape"]["launches_per_rank"] = [
+                r[name] for r in mesh["launches_per_rank"]]
         line["kernels"].append(rec)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.out is not None:
@@ -2596,7 +2902,7 @@ def main(argv=None) -> int:
         args.out.write_text(json.dumps(
             {"card": card_line(), "kernels": line["kernels"], "gather_cases": gather_cases,
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
-             "modes": modes, "kitti": kitti, "bag": bag, "batched": batched,
+             "modes": modes, "kitti": kitti, "bag": bag, "batched": batched, "mesh": mesh,
              "timing_floor_ms": floor,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))

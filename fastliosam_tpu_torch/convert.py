@@ -6,7 +6,10 @@ and returns the port's tensors on ``device``. No JAX is needed: the caller
 does the ``np.asarray``. The tests use this to put both implementations
 into the same state mid-run. :func:`odom_state_to_numpy` goes back, so a
 state can return to the JAX package (``OdomState(nav=NavState(**d["nav"]),
-vmap=VoxelMap(**d["vmap"]), ...)`` there).
+vmap=VoxelMap(**d["vmap"]), ...)`` there). In mesh mode
+:func:`voxel_map_shard_from_numpy` and :func:`pose_graph_shard_from_numpy`
+cut a rank's shard from a whole JAX map or graph, and :func:`gather_map`
+puts a slot-sharded map back together.
 """
 from __future__ import annotations
 
@@ -89,6 +92,32 @@ def odom_state_to_numpy(state: OdomState) -> dict:
 
 def pose_graph_from_numpy(g, device=None) -> PoseGraph:
     return _tensors(PoseGraph, g, device)
+
+
+def voxel_map_shard_from_numpy(m, mesh) -> VoxelMap:
+    """This rank's slot range of a whole JAX ``VoxelMap`` given as numpy,
+    on the rank's device (``parallel/sharded_map.py``'s layout: rank d holds
+    slots ``[d·C/n, (d+1)·C/n)``)."""
+    from .parallel.sharded_odom import shard_map_arrays
+
+    return shard_map_arrays(voxel_map_from_numpy(m, "cpu"), mesh)
+
+
+def pose_graph_shard_from_numpy(g, mesh) -> PoseGraph:
+    """This rank's factor rows of a whole JAX ``PoseGraph`` given as numpy
+    (padded to a multiple of the mesh, as ``solve_sharded`` pads them), the
+    poses whole, on the rank's device."""
+    from .parallel.sharded_pgo import shard_factors
+
+    return shard_factors(pose_graph_from_numpy(g, "cpu"), mesh)
+
+
+def gather_map(m_shard: VoxelMap, mesh) -> dict:
+    """The whole slot-sharded map as numpy, a dict of arrays by field (the
+    JAX package's ``VoxelMap`` leaves), on every rank: one all-gather a
+    field. Every rank must call it."""
+    return {k: mesh.all_gather(v).reshape((-1,) + tuple(v.shape[1:])).cpu().numpy()
+            for k, v in m_shard._asdict().items()}
 
 
 def keyframes_from_numpy(kf, device=None) -> KeyframeStore:

@@ -5,8 +5,9 @@
 there record why each deliberate divergence from the reference exists.
 Both ICP methods (``icp_method="point"`` and ``"p2pl"``, whose normals come
 from the destination's surfel map through the cached-plane query) and the
-multi-start coarse search (``icp_multistart > 1``) are ported; the sharded
-ICP backend (``icp_fn``) is not.
+multi-start coarse search (``icp_multistart > 1``) are ported, and so is
+the alignment backend ``icp_fn`` (the mesh's point-sharded ICP,
+``parallel/sharded_loop.py: icp_align_sharded``).
 """
 from __future__ import annotations
 
@@ -104,9 +105,11 @@ def verify_loop(
     fitness)`` as device tensors: ``rel`` is the between-factor measurement
     from query to candidate, ``(icp_tf · T_q)⁻¹ · T_c``, and ``sqrt_info``
     the diagonal sqrt information (1/sqrt(fitness), anisotropic in
-    translation when ``cfg.aniso_noise``)."""
-    if icp_fn is not None:
-        raise NotImplementedError("icp_fn (sharded ICP backends) is not ported yet")
+    translation when ``cfg.aniso_noise``).
+
+    ``icp_fn`` overrides the submap alignment: ``(src, src_mask, dst,
+    dst_mask) -> (T, fitness, n_corr)``; the multi-start search is off
+    then, as in the JAX package."""
     dev = resolve_device(device)
     kf_clouds, kf_cloud_masks, poses, kf_valid = to_device(
         (kf_clouds, kf_cloud_masks, poses, kf_valid), dev
@@ -117,7 +120,7 @@ def verify_loop(
                                  cand_idx, cfg)
     # the destination's surfel map: the point-to-plane normals, the
     # anisotropic-noise coverage Gram and the multi-start's weak axis
-    multistart = cfg.icp_multistart > 1
+    multistart = cfg.icp_multistart > 1 and icp_fn is None
     if cfg.icp_method == "p2pl" or cfg.aniso_noise or multistart:
         dst_map, dst_map_cfg = _dst_surfel_map(dst, dst_mask, cfg)
     init_T = torch.eye(4, dtype=torch.float32, device=dev)
@@ -126,7 +129,9 @@ def verify_loop(
     icp_kw = dict(init_T=init_T, max_iterations=cfg.max_iterations,
                   max_corr_dist=cfg.radius * cfg.max_corr_factor, nn_chunk=cfg.nn_chunk,
                   trim_fraction=cfg.trim_fraction, convergence_eps=cfg.convergence_eps)
-    if cfg.icp_method == "p2pl":
+    if icp_fn is not None:
+        icp_tf, fitness, n_corr = icp_fn(src, src_mask, dst, dst_mask)
+    elif cfg.icp_method == "p2pl":
         nrm_pts, _, nvalid = vh.query_planes(dst_map, dst_map_cfg, dst, dst_mask)
         icp_tf, fitness, n_corr = icp_align_p2pl(src, src_mask, dst, dst_mask, nrm_pts,
                                                  nvalid, **icp_kw)

@@ -242,9 +242,16 @@ def _merged_fit(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, coords0, pools):
     re-referenced to the query voxel's centre, and fit one plane per query.
     Returns ``(normal, d, valid, rvar)``; lane-major, over ``(B, n)``
     queries and ``(P, B, n, 3)`` pools."""
-    c0 = _voxel_center(coords0, cfg.voxel_size)
     tot = merged_moments(m.fp, m.moments, pools, coords0, mask, cfg.voxel_size,
                          cfg.query_probes)
+    return _fit_merged(cfg, xyz, mask, coords0, tot)
+
+
+def _fit_merged(cfg: VoxelMapConfig, xyz, mask, coords0, tot):
+    """One plane per query from its merged sums ``tot (..., 13)`` (of
+    :func:`ops.assoc_cuda.merged_moments`, relative to the centre of the
+    query voxel ``coords0``). Returns ``(normal, d, valid, rvar)``."""
+    c0 = _voxel_center(coords0, cfg.voxel_size)
     tot_c, tot_s = tot[..., 0], tot[..., 1:4]
     tot_o = tot[..., 4:13].reshape(tuple(tot.shape[:-1]) + (3, 3))
     safe_c = torch.clamp(tot_c, min=1.0)

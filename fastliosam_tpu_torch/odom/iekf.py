@@ -30,12 +30,15 @@ from ..utils.sync import host_read
 from .state import NavState, OdomConfig, boxminus, boxplus, matvec
 
 
-def _query_planes(x, pts_body, mask, vmap, map_cfg, cfg: OdomConfig):
+def _query_planes(x, pts_body, mask, vmap, map_cfg, cfg: OdomConfig, query_fn=None):
     """``(normal, d, valid, rvar)`` of each point's plane at state ``x``;
     ``rvar`` is 0 in the cached single-voxel mode, whose stored planes carry
     no moment record. Batched states take ``(B, n, 3)`` points and a
-    lane-major map."""
+    lane-major map. ``query_fn`` overrides the map query (the slot-sharded
+    map, ``parallel/sharded_odom.py``)."""
     pw = pts_body @ x.R.mT + x.p[..., None, :]
+    if query_fn is not None:
+        return query_fn(vmap, map_cfg, pw, mask)
     if cfg.query_mode == "merged":
         return vh.query_planes_merged(vmap, map_cfg, pw, mask)
     if cfg.query_mode == "merged2":
@@ -117,18 +120,19 @@ def iekf_update(
     map_cfg: vh.VoxelMapConfig,
     cfg: OdomConfig,
     gate_on_device: bool = False,
+    query_fn=None,
 ):
     """Iterated MAP update. Returns ``(state, n_matched)``. A batched
     ``x_prop`` takes ``(B, n, 3)`` points with ``(B, n)`` masks and a
     lane-major map, needs ``gate_on_device``, and returns ``n_matched
-    (B,)``."""
+    (B,)``. ``query_fn`` overrides the map query, as in the JAX package."""
     if x_prop.R.dim() > 2 and not gate_on_device and cfg.requery_thresh > 0.0:
         raise ValueError("a batched update gates its re-query per lane: pass gate_on_device")
     dev = pts_body.device
     P_inv = torch.linalg.inv_ex(x_prop.P).inverse
     x = x_prop
 
-    planes = _query_planes(x, pts_body, mask, vmap, map_cfg, cfg)
+    planes = _query_planes(x, pts_body, mask, vmap, map_cfg, cfg, query_fn)
     # LiDAR-frame points through the propagated extrinsic; the model below
     # re-applies the current extrinsic each iteration
     p_l = (pts_body - x_prop.t_ext[..., None, :]) @ x_prop.R_ext
@@ -145,16 +149,16 @@ def iekf_update(
             # adaptive: re-associate only when the previous step moved far
             # enough to invalidate the association
             if cfg.requery_thresh <= 0.0:
-                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg)
+                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
             elif gate_on_device:
-                fresh = _query_planes(x, q_b, mask, vmap, map_cfg, cfg)
+                fresh = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
                 moved = dp_last > cfg.requery_thresh
                 planes = tuple(
                     torch.where(moved.reshape(moved.shape + (1,) * (a.dim() - moved.dim())), a, b)
                     for a, b in zip(fresh, planes)
                 )
             elif bool(host_read(dp_last > cfg.requery_thresh)):  # one host read
-                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg)
+                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
         x, dx, S, valid = _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg, eye3)
         n_matched = torch.sum(valid.to(torch.int32), dim=-1)
         dp_last = (torch.linalg.vector_norm(dx[..., 3:6], dim=-1)

@@ -57,9 +57,12 @@ class OdomState(NamedTuple):
 
 
 def init_odom(map_cfg: vh.VoxelMapConfig, odom_cfg: OdomConfig | None = None,
-              g_world=None, device=None, lanes: int | None = None) -> OdomState:
+              g_world=None, device=None, lanes: int | None = None,
+              vmap: vh.VoxelMap | None = None) -> OdomState:
     """The initial state; with ``lanes``, the batched state of ``lanes``
-    fresh lanes (a lane-major map, per-lane counters on the device)."""
+    fresh lanes (a lane-major map, per-lane counters on the device). A
+    given ``vmap`` (a map shard of ``parallel/sharded_map.py``) takes the
+    place of a fresh whole map, which is then never allocated."""
     dev = resolve_device(device)
     if lanes is not None:
         return OdomState(
@@ -71,7 +74,7 @@ def init_odom(map_cfg: vh.VoxelMapConfig, odom_cfg: OdomConfig | None = None,
         )
     return OdomState(
         nav=init_state(g_world, odom_cfg, dev),
-        vmap=vh.make_map(map_cfg, dev),
+        vmap=vh.make_map(map_cfg, dev) if vmap is None else vmap,
         scan_idx=0,
         initialized=False,
         w_cv=torch.zeros((3,), dtype=torch.float32, device=dev),
@@ -138,9 +141,9 @@ def odom_step(
     world pose (R, p, v), the world-frame downsampled cloud and its mask,
     and the diagnostics ``n_matched`` / ``n_dropped`` (device scalars).
     ``gate_on_device`` makes the iEKF re-query gate a device-side select
-    (no host read; see ``odom/iekf.py``)."""
-    if map_ops is not None:
-        raise NotImplementedError("map_ops (sharded map backends) is not ported yet")
+    (no host read; see ``odom/iekf.py``). ``map_ops`` (query, insert,
+    evict) overrides the map backend: the slot-sharded map of the mesh
+    (``parallel/sharded_odom.py: sharded_map_ops``) plugs in here."""
     dev = resolve_device(device)
     state, scan, imu = to_device((state, scan, imu), dev)
     scan_dt = float(scan_dt)
@@ -170,7 +173,8 @@ def odom_step(
     msk = ds.mask[:budget]
 
     nav_upd, n_matched = iekf_update(nav_prop, pts, msk, state.vmap, map_cfg, cfg,
-                                     gate_on_device)
+                                     gate_on_device,
+                                     query_fn=None if map_ops is None else map_ops.query)
     # IMU-less: velocity from the pose correction, EMA-smoothed
     v_fd = (nav_upd.p - nav0.p) / max(scan_dt, 1e-3)
     v_sm = cfg.cv_vel_alpha * v_fd + (1.0 - cfg.cv_vel_alpha) * nav0.v
@@ -185,10 +189,14 @@ def odom_step(
     # map insert of the updated world-frame cloud (the cached-plane refit
     # only where the query mode reads cached planes)
     pw = pts @ nav_new.R.T + nav_new.p
-    vmap_new, n_dropped = vh.insert(state.vmap, map_cfg, pw, msk,
-                                    refresh_planes=(cfg.query_mode == "cached"))
+    if map_ops is None:
+        vmap_new, n_dropped = vh.insert(state.vmap, map_cfg, pw, msk,
+                                        refresh_planes=(cfg.query_mode == "cached"))
+    else:
+        vmap_new, n_dropped = map_ops.insert(state.vmap, map_cfg, pw, msk)
     if state.scan_idx % cfg.evict_every == cfg.evict_every - 1:
-        vmap_new = vh.evict_far(vmap_new, map_cfg, nav_new.p, cfg.det_range)
+        evict = vh.evict_far if map_ops is None else map_ops.evict
+        vmap_new = evict(vmap_new, map_cfg, nav_new.p, cfg.det_range)
 
     new_state = OdomState(
         nav=nav_new,
@@ -235,11 +243,16 @@ def odom_step_batched(
     cfg: OdomConfig,
     map_cfg: vh.VoxelMapConfig,
     device=None,
+    map_ops=None,
 ):
     """:func:`odom_step` of B lanes in one pass: a batched ``state``, ``(B,
     N, ...)`` scans and ``(B, M, ...)`` IMU batches. Each lane's
     ``has_imu``, ``initialized``, re-query gate and eviction cadence select
-    its own result. Returns ``(new_state, aux)`` with ``(B, ...)`` members."""
+    its own result. Returns ``(new_state, aux)`` with ``(B, ...)`` members.
+    There is no sharded map backend for lanes (nor in the JAX package):
+    ``map_ops`` raises."""
+    if map_ops is not None:
+        raise ValueError("the batched step has no map_ops backend (the JAX package has none)")
     dev = resolve_device(device)
     state, scan, imu = to_device((state, scan, imu), dev)
     scan_dt = float(scan_dt)

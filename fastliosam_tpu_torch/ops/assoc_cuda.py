@@ -118,16 +118,26 @@ def merged_moments_ref(fp, moments, pools, coords0, mask, voxel_size: float, pro
     where nothing matched), and the re-referenced sums in the order the
     kernel keeps; lane-major with ``fp (B, C)``, lane by lane the
     unbatched sums."""
+    moms = []
+    for coords in pools:
+        slots, found = find_slots_ref(fp, coords, mask, probes)
+        # 0 where not found
+        moms.append(gather_rows_ref(moments, slots, valid=found, lane_major=fp.dim() == 2))
+    return rereferenced_sums(moms, pools, coords0, voxel_size)
+
+
+def rereferenced_sums(moms, pools, coords0, voxel_size: float):
+    """``(..., 13)`` ``[count, Σ (3), Σ outer (3x3)]``: the moment rows
+    ``moms`` (one ``(..., 10)`` per pool voxel, zeros where none matched)
+    shifted from each pool voxel's centre to the query voxel's centre and
+    summed over the pools in the order the kernel keeps."""
     lead = tuple(coords0.shape[:-1])  # (n,) or (B, n)
     dev = coords0.device
     c0 = voxel_center(coords0, voxel_size)
     tot_c = torch.zeros(lead, dtype=torch.float32, device=dev)
     tot_s = torch.zeros(lead + (3,), dtype=torch.float32, device=dev)
     tot_o = torch.zeros(lead + (3, 3), dtype=torch.float32, device=dev)
-    for coords in pools:
-        slots, found = find_slots_ref(fp, coords, mask, probes)
-        # 0 where not found
-        mom = gather_rows_ref(moments, slots, valid=found, lane_major=fp.dim() == 2)
+    for mom, coords in zip(moms, pools):
         ci = mom[..., 0]
         si = mom[..., 1:4]
         xx, xy, xz, yy, yz, zz = mom[..., 4:10].unbind(-1)

@@ -140,8 +140,11 @@ def _dense_step(g: PoseGraph, cfg: PoseGraphConfig, prior_pose, lam):
     return dx.reshape(K, 6)
 
 
-def _linearize(g: PoseGraph, cfg: PoseGraphConfig, prior_pose):
-    """``b = -JᵀWr``, per-pose diagonal Hessian blocks, and a matvec."""
+def _linearize(g: PoseGraph, cfg: PoseGraphConfig, prior_pose, reduce=None):
+    """``b = -JᵀWr``, per-pose diagonal Hessian blocks, and a matvec.
+    ``reduce`` (the factor-sharded solve's ``psum``) combines the factor
+    rows' scatter of ``b``, of the blocks and of every ``A·v`` across
+    ranks before the prior's term is added."""
     K = g.poses.shape[0]
     dev = g.poses.device
     rb, Ji, Jj = _between_residuals(g, cfg)
@@ -155,7 +158,8 @@ def _linearize(g: PoseGraph, cfg: PoseGraphConfig, prior_pose):
 
     def scatter(terms, row_shape):
         zeros = torch.zeros((K,) + row_shape, dtype=torch.float32, device=dev)
-        return segment.index_add_(zeros, plan, terms)
+        out = segment.index_add_(zeros, plan, terms)
+        return out if reduce is None else reduce(out)
 
     b = scatter(_rhs_terms(Ji, Jj, Jg, rb, rg), (6,))
     b[0] += -(Jp.T @ rp)

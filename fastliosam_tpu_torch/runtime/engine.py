@@ -27,9 +27,19 @@ which reads the marginal covariance once per solve.
 Loop verification is computed when it is launched (JAX dispatches it
 asynchronously), but its result is still resolved at the NEXT loop
 attempt, so loop factors land with the same one-attempt lag and the
-trajectory matches the JAX engine's.
+trajectory matches the JAX engine's. ``EngineConfig.loop_device`` runs it
+on ``cuda:{loop_device}`` when that card exists and no mesh is set.
 
-Not ported yet (they raise): mesh mode and ``map_ops``.
+Mesh mode (``mesh=``, a ``parallel.Mesh``): every rank of the mesh runs
+the same engine calls on the same inputs (SPMD). The voxel map lives
+slot-sharded, each rank allocating only its ``C/n`` slots
+(``parallel/sharded_odom.py: sharded_map_ops``); the pose-graph solve
+shards its factor rows (``parallel/sharded_pgo.py: solve_sharded``); loop
+verification shards the source points of its ICP
+(``parallel/sharded_loop.py: icp_align_sharded``; untrimmed, so mesh mode
+sets ``trim_fraction`` to 1.0). Keyframes, poses and the graph stay
+replicated. Every collective hands every rank the same bits, so the host
+decisions agree on every rank. ``map_ops`` alone plugs in a map backend.
 """
 from __future__ import annotations
 
@@ -160,16 +170,30 @@ class SlamEngine:
         cfg: EngineConfig = EngineConfig(),
         map_ops=None,
         mesh=None,
+        shard_axis: str = "kf",
         device=None,
     ):
-        if mesh is not None or map_ops is not None:
-            raise NotImplementedError("mesh mode and map_ops are not ported yet")
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.odom_cfg = odom_cfg
         self.map_cfg = map_cfg
         self.loop_cfg = loop_cfg
         self.pgo_cfg = pgo_cfg
         self.cfg = cfg
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        if map_ops is None and mesh is not None:
+            from ..parallel.sharded_odom import sharded_map_ops
+
+            map_ops = sharded_map_ops(mesh, shard_axis)
+        self.map_ops = map_ops
+        if mesh is not None and loop_cfg.trim_fraction != 1.0:
+            # the point-sharded ICP is untrimmed (a global trim needs a
+            # distributed order statistic): PCL-exact semantics
+            self.loop_cfg = loop_cfg._replace(trim_fraction=1.0)
         # keyframe clouds come from the downsampled odometry cloud
         self.kf_points = min(cfg.kf_cloud_points, odom_cfg.num_ds_points)
         self.reset()
@@ -177,7 +201,13 @@ class SlamEngine:
     def reset(self):
         """Reset all mutable pipeline state to a fresh run."""
         dev = self.device
-        self.odom = init_odom(self.map_cfg, self.odom_cfg, device=dev)
+        vmap = None
+        if self.mesh is not None:
+            # each rank allocates its slot range only, never the whole map
+            from ..parallel.sharded_map import make_map_sharded
+
+            vmap = make_map_sharded(self.map_cfg, self.mesh, self.shard_axis)
+        self.odom = init_odom(self.map_cfg, self.odom_cfg, device=dev, vmap=vmap)
         self.graph: PoseGraph = make_graph(self.pgo_cfg, dev)
         self.kf = KeyframeStore.create(self.pgo_cfg.max_keyframes, self.kf_points, dev)
         # the last keyframe's raw and corrected poses: host numpy, or device
@@ -243,7 +273,7 @@ class SlamEngine:
             self._on_gps(fix)
         self.odom, aux = odom_step(
             self.odom, scan, imu, scan_dt, self.odom_cfg, self.map_cfg,
-            device=self.device,
+            map_ops=self.map_ops, device=self.device,
         )
         self.match_counts.append(aux["n_matched"])
         # one small readback per scan; pose composition below is host numpy
@@ -361,7 +391,7 @@ class SlamEngine:
             imu = ImuBatch(*(t[s] for t in imus))
             self.odom, aux = odom_step(
                 self.odom, scan, imu, scan_dt, self.odom_cfg, self.map_cfg,
-                device=dev, gate_on_device=True,
+                map_ops=self.map_ops, device=dev, gate_on_device=True,
             )
             self.match_counts.append(aux["n_matched"])
             raw_T = se3.make(aux["R"], aux["p"])
@@ -549,10 +579,31 @@ class SlamEngine:
             return
         self._launch_verify(k - 1, cand)
 
+    def _verify_device(self) -> torch.device:
+        """Where loop verification runs: ``cuda:{loop_device}`` when no mesh
+        is set and that card exists, else the engine's device."""
+        k = self.cfg.loop_device
+        if self.mesh is None and k is not None and k < torch.cuda.device_count():
+            return torch.device("cuda", k)
+        return self.device
+
+    def _icp_fn(self):
+        """The mesh's point-sharded loop ICP (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        from ..parallel.mesh import shard_leading
+        from ..parallel.sharded_loop import icp_align_sharded
+
+        lc, mesh = self.loop_cfg, self.mesh
+        return lambda s, sm, d, dm: icp_align_sharded(
+            shard_leading(mesh, s), shard_leading(mesh, sm), d, dm, mesh, self.shard_axis,
+            max_iterations=lc.max_iterations, max_corr_dist=lc.radius * lc.max_corr_factor,
+            nn_chunk=lc.nn_chunk)
+
     def _launch_verify(self, query: int, cand: int):
         out = verify_loop(
             self.kf.clouds, self.kf.masks, self.graph.poses, self.graph.kf_valid,
-            query, cand, self.loop_cfg, device=self.device,
+            query, cand, self.loop_cfg, icp_fn=self._icp_fn(), device=self._verify_device(),
         )
         self._pending_loops.append((query, cand, out))
 
@@ -566,7 +617,9 @@ class SlamEngine:
                 if self._n_bt_host >= self.pgo_cfg.max_between:
                     self._grow_between()
                 self._n_bt_host += 1
-                self.graph = add_between(self.graph, qi, ci, rel, sqrt_info)
+                # back from the verification's device (loop_device)
+                self.graph = add_between(self.graph, qi, ci, rel.to(self.device),
+                                         sqrt_info.to(self.device))
                 self.loop_pairs.append((qi, ci))
                 self.loop_rels.append(host_read(rel))
                 self.loop_fitness.append(fit)
@@ -574,7 +627,12 @@ class SlamEngine:
 
     # ------------------------------------------------------------------
     def _solve(self):
-        self.graph, _ = solve(self.graph, self.pgo_cfg, device=self.device)
+        if self.mesh is not None:
+            from ..parallel.sharded_pgo import solve_sharded
+
+            self.graph, _ = solve_sharded(self.graph, self.pgo_cfg, self.mesh, self.shard_axis)
+        else:
+            self.graph, _ = solve(self.graph, self.pgo_cfg, device=self.device)
         self.solve_count += 1
         self._needs_solve = False
         k = self.kf.n

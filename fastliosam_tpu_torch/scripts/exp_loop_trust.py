@@ -61,10 +61,11 @@ def ensure_longrun_dataset(world: str = "canyon") -> str:
 
 
 def make_bench_engine(device=None, max_kf: int = 128, max_between: int = 256,
-                      max_gps: int = 64, chunk: int = 5):
+                      max_gps: int = 64, chunk: int = 5, mesh=None):
     """The bench's loop-closing pipeline (``bench.py: make_engine_for``):
     8192 iEKF points, merged3, a 2^19-slot map with 2 probes, loops at
-    10 m / 4 s over 16,384-point submaps, keyframes every metre."""
+    10 m / 4 s over 16,384-point submaps, keyframes every metre; with
+    ``mesh``, in mesh mode (``parallel``) on the rank's device."""
     from ..loop import LoopConfig
     from ..map import VoxelMapConfig
     from ..odom import OdomConfig
@@ -83,6 +84,7 @@ def make_bench_engine(device=None, max_kf: int = 128, max_between: int = 256,
                                 max_gps=max_gps),
         cfg=EngineConfig(keyframe_threshold=1.0, loop_check_every=chunk,
                          kf_cloud_points=4096, kf_cloud_voxel=0.3),
+        mesh=mesh,
         device=device,
     )
 

@@ -1040,3 +1040,78 @@ def test_batched_rollout_on_the_card(cuda_device):
     _, ref = odom_rollout(one, Scan(*(t[0] for t in sc)), ImuBatch(*(t[0] for t in im)), dt,
                           cfg, map_cfg, device=cuda_device)
     np.testing.assert_allclose(aux4["p"][1].cpu().numpy(), ref["p"].cpu().numpy(), atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_nn_kernel_at_the_mesh_rank_shape(cuda_device):
+    """The point-sharded loop ICP's nearest neighbours a rank at 4 ranks: a
+    quarter of the 16,384 source points against the whole 16,384-point
+    destination (``parallel/sharded_loop.py``), the tolerance above."""
+    src, dst, mask = _inputs(11, 4096, 16384)
+    s, d, mk = (torch.from_numpy(a).to(cuda_device) for a in (src, dst, mask))
+    k_idx, k_d2 = nn_cuda.nearest_neighbors(s, d, mk)
+    r_idx, r_d2 = nn_cuda.nearest_neighbors_ref(s, d, mk)
+    k_idx, k_d2, r_idx, r_d2 = (t.cpu().numpy() for t in (k_idx, k_d2, r_idx, r_d2))
+    np.testing.assert_allclose(k_d2, r_d2, rtol=1e-5, atol=1e-4)
+    diff = k_idx != r_idx
+    np.testing.assert_allclose(((src[diff] - dst[k_idx[diff]]) ** 2).sum(-1),
+                               ((src[diff] - dst[r_idx[diff]]) ** 2).sum(-1),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sharded_map_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """Two gloo ranks on ``cuda:0`` (``tests/_torch_mesh_worker.py``): the
+    sharded gram, two insert batches and the merged3 query against the
+    port's replicated functions on the card (the insert and association
+    kernels). Tolerances of ``tests/test_parallel.py``: gram rtol 1e-4 /
+    atol 1e-3, fingerprints exact, moments rtol 1e-6 / atol 1e-5, valid
+    flags exact, normals 1e-4, d 1e-3 and rvar rtol 1e-3 on valid rows."""
+    import json
+
+    from _torch_mesh_worker import spawn_ranks
+
+    from fastliosam_tpu_torch.map import VoxelMapConfig, insert, make_map
+    from fastliosam_tpu_torch.map.voxel_hash import query_planes_merged3
+
+    rng = np.random.default_rng(0)
+    n = 8192
+    pts = np.stack([rng.uniform(-30, 30, n), rng.uniform(-30, 30, n),
+                    0.05 * rng.standard_normal(n)], 1).astype(np.float32)
+    cfg = dict(capacity=1 << 16, voxel_size=0.5, min_points=5, query_probes=2,
+               insert_probes=2, claim_probes=2)
+    inp = {"map.pts": pts, "map.mask": rng.uniform(size=n) > 0.1,
+           "map.q": pts + rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32),
+           "map.pts2": pts + rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32),
+           "map.cfg": json.dumps(cfg),
+           "gram.A": rng.normal(size=(4096, 6)).astype(np.float32),
+           "gram.w": (rng.uniform(size=4096) > 0.3).astype(np.float32),
+           "gram.r": rng.normal(size=4096).astype(np.float32)}
+    np.savez(tmp_path / "inputs.npz", **inp)
+    outs = spawn_ranks(2, str(tmp_path / "inputs.npz"), str(tmp_path / "out"),
+                       ["gram", "map"], device="cuda:0", threads=2)
+    A, w, r = inp["gram.A"], inp["gram.w"], inp["gram.r"]
+    vm_cfg = VoxelMapConfig(**cfg)
+    t = {k: torch.from_numpy(inp[f"map.{k}"]).to(cuda_device)
+         for k in ("pts", "mask", "q", "pts2")}
+    m, drop = insert(make_map(vm_cfg, cuda_device), vm_cfg, t["pts"], t["mask"],
+                     refresh_planes=False)
+    nrm, d, valid, rvar = (x.cpu().numpy() for x in
+                           query_planes_merged3(m, vm_cfg, t["q"], t["mask"]))
+    m2, _ = insert(m, vm_cfg, t["pts2"], t["mask"], refresh_planes=False)
+    for o in outs:
+        np.testing.assert_allclose(o["gram.G"], A.T @ (A * w[:, None]), rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(o["gram.b"], (A * w[:, None]).T @ r, rtol=1e-4, atol=1e-3)
+        assert int(o["gram.n"]) == int(np.sum(w > 0))
+        assert int(o["map.shard_rows"]) == vm_cfg.capacity // 2
+        assert int(o["map.drop"]) == int(drop)
+        np.testing.assert_array_equal(o["map.fp"], m.fp.cpu().numpy())
+        np.testing.assert_allclose(o["map.moments"], m.moments.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-5)
+        np.testing.assert_array_equal(o["map.q_valid"], valid)
+        np.testing.assert_allclose(o["map.q_n"][valid], nrm[valid], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(o["map.q_d"][valid], d[valid], rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(o["map.q_rvar"][valid], rvar[valid], rtol=1e-3, atol=1e-5)
+        np.testing.assert_array_equal(o["map.fp2"], m2.fp.cpu().numpy())
+        np.testing.assert_allclose(o["map.moments2"], m2.moments.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-5)

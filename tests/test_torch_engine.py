@@ -195,22 +195,49 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_unported_options_raise():
-    """The sharded backends are not ported: the mesh engine, the sharded
-    map operations and the sharded ICP raise. (The cached and merged2
-    query modes, point-to-plane and multi-start ICP are ported since:
-    tests/test_torch_query_modes.py, tests/test_torch_loop_modes.py.)"""
-    with pytest.raises(NotImplementedError):
-        trt.SlamEngine(mesh=object(), device="cpu")
+    """What is still not ported raises: the batched step with a map
+    backend (the JAX package has no such combination either). The former
+    unported options run now (mesh mode: tests/test_torch_parallel*.py):
+    ``odom_step(map_ops=...)`` calls the backend's query, insert and
+    evict, ``verify_loop(icp_fn=...)`` aligns with it and skips the
+    multi-start, and a mesh engine refuses a device other than its rank's."""
+    from fastliosam_tpu_torch.parallel import MapOps, Mesh
+
     map_cfg = tmap.VoxelMapConfig(capacity=1 << 8)
+    cfg = todom.OdomConfig(num_ds_points=16, evict_every=1)
     scan = todom.Scan(torch.zeros((16, 3)), torch.zeros(16), torch.ones(16, dtype=torch.bool))
     imu = todom.ImuBatch(torch.full((4,), 1e9), torch.zeros((4, 3)), torch.zeros((4, 3)),
                          torch.zeros(4, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="map_ops"):
-        todom.odom_step(todom.init_odom(map_cfg, device="cpu"), scan, imu, 0.1,
-                        todom.OdomConfig(query_mode="cached", num_ds_points=16), map_cfg,
-                        map_ops=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="icp_fn"):
-        tloop.verify_loop(torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool),
-                          torch.eye(4).repeat(2, 1, 1), torch.ones(2, dtype=torch.bool),
-                          1, 0, tloop.LoopConfig(icp_multistart=2, icp_method="p2pl"),
-                          icp_fn=object(), device="cpu")
+    calls = []
+
+    def query(m, c, pts, msk):
+        calls.append("query")
+        z = torch.zeros(pts.shape[0])
+        return torch.zeros_like(pts), z, torch.zeros_like(msk), z
+
+    ops = MapOps(query=query,
+                 insert=lambda m, c, pts, msk: (calls.append("insert"), (m, 0))[1],
+                 evict=lambda m, c, ctr, r: (calls.append("evict"), m)[1])
+    lanes = todom.init_odom(map_cfg, cfg, device="cpu", lanes=2)
+    with pytest.raises(ValueError, match="map_ops"):
+        todom.odom_step_batched(
+            lanes, todom.Scan(*(torch.stack([t, t]) for t in scan)),
+            todom.ImuBatch(*(torch.stack([t, t]) for t in imu)), 0.1, cfg, map_cfg,
+            device="cpu", map_ops=ops)
+    todom.odom_step(todom.init_odom(map_cfg, device="cpu"), scan, imu, 0.1, cfg, map_cfg,
+                    map_ops=ops, device="cpu")
+    assert calls[0] == "query" and calls[-2:] == ["insert", "evict"]
+    seen = []
+
+    def icp_fn(src, sm, dst, dm):
+        seen.append(src.shape[0])
+        return torch.eye(4), torch.tensor(0.25), torch.tensor(500, dtype=torch.int32)
+
+    _, _, acc, fit = tloop.verify_loop(
+        torch.rand((2, 64, 3)) * 10, torch.ones((2, 64), dtype=torch.bool),
+        torch.eye(4).repeat(2, 1, 1), torch.ones(2, dtype=torch.bool), 1, 0,
+        tloop.LoopConfig(icp_multistart=2, icp_method="p2pl", min_correspondences=100),
+        icp_fn=icp_fn, device="cpu")
+    assert len(seen) == 1 and bool(acc) and float(fit) == 0.25
+    with pytest.raises(ValueError, match="mesh rank"):
+        trt.SlamEngine(mesh=Mesh(None, "kf", 0, 1, torch.device("cpu")), device="cuda:1")

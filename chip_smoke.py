@@ -138,7 +138,33 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      phase. Printed: scans/s, host reads, collectives and their host ms a
      chunk, NN launches and peak device memory per rank, the phase's time.
      The NN kernel is also checked and timed at the rank's shape, 4096 x
-     16,384 (``at_mesh_rank_shape`` in the kernels line).
+     16,384 (``at_mesh_rank_shape`` in the kernels line);
+ 12. postprocess phase, the post-processing toolbox
+     (``fastliosam_tpu_torch.postprocess``) on phase 8's export and the
+     trajectories of phases 4 and 6: first the float64 k-NN kernel
+     (``csrc/knn.cu``) bit for bit with its plain version at k = 20 on
+     65,536 points of the exported map (self excluded, the SOR's use) and
+     at k = 1 on 8192 x 8192 of its points' xy (z = 0, the ICP-2D's use,
+     under ``at_icp_shape``), and the clustering's neighbour-voxel kernel
+     (``csrc/cluster.cu``) on the 65,536 points, edges equal, each timed
+     beside its plain version, ``cdist`` + ``topk`` for the k-NN and its
+     bound (8 FP64 instructions a pair at 16.75e12 a second); then both
+     again at the main path's own inputs (``at_main_path``): the k-NN on
+     the whole map at k = 20 and on the ICP's first iteration at k = 1,
+     the neighbour-voxel kernel on the SOR-kept points; then the path,
+     counted:
+     ``denoise_slam_map`` on all of the exported map (SOR 20 / 2.0,
+     clusters of 0.5 m / 10 points) twice, masks bit for bit;
+     ``ransac_ground_plane`` (normal within 2 degrees of +z);
+     ``georeference_trajectory`` of the GPS run's keyframes against its
+     fixes (mean error < 2.0 m); ``icp_2d_with_scale`` of the per-scan
+     run's trajectory against its ground truth through a 30 degree, x1.05,
+     100 m similarity, started 5 degrees and 2 m off (recovered within 0.5
+     degrees, 0.5 m and 1e-2); ``match_trajectory`` of the georeferenced
+     keyframes on the corridor's centreline, two roads 40 m off and a
+     crossing road (every keyframe on the centreline, the route within 2%
+     of the distance travelled); a stub TorchScript detector head loaded
+     on the card, ``decode_yolo`` / ``nms`` there equal to the CPU's.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours and the row gather (the loop closure's plane refresh) on the
@@ -149,7 +175,8 @@ gather and the NN on the cached run and the association, the insert and
 the NN on the merged2 run; the association, the insert, the row gather
 and the NN on the bag run of phase 9; the association and the insert on
 the batched rollout of phase 10, the cached query, the row gather and the
-insert on its cached-mode batch). Phases 4-6 and 9 report the
+insert on its cached-mode batch; the k-NN and the neighbour-voxel
+kernel on the postprocess path of phase 12). Phases 4-6 and 9 report the
 insert's, the association's and the row gather's launches per scan, and
 device operations per scan over a window traced with ``torch.profiler``
 (the last 50 scans of the replay in 4 and 5, the last 25 of the GPS
@@ -1237,7 +1264,7 @@ def per_scan_phase(dev, feed):
         "ATE < 0.10 m": ate < 0.10,
         "replay bit-identical": result["replay_bit_identical"],
     })
-    return result
+    return result, poses
 
 
 def profile_phase(dev, feed, profile_scans: int):
@@ -1428,7 +1455,8 @@ def gps_phase(dev, feed, chunk: int = 5):
         "merged_moments and insert_claim launched":
             launches["merged_moments"] > 0 and launches["insert_claim"] > 0,
     })
-    return result
+    return result, (engine.keyframe_stamps().astype(np.float64),
+                    engine.keyframe_poses()[:, :3, 3].astype(np.float64))
 
 
 # ---------------------------------------------------------------------------
@@ -2730,6 +2758,359 @@ def mesh_phase(dev, feed_path: str, chunk: int = 5, n_scans: int | None = None,
     return result
 
 
+# ---------------------------------------------------------------------------
+# postprocess phase (phase 12): the toolbox on the KITTI phase's export
+# ---------------------------------------------------------------------------
+# float64 instructions a second outside the tensor cores: the SXM data
+# sheet's 33.5 TFLOP/s counts a fused multiply-add as two operations, and
+# the kernels issue every DSUB / DMUL / DADD on its own (no FMA)
+H100_F64_INSTR = 16.75e12
+PP_SUBSET = 65536  # the kernel checks' points of the exported map
+PP_ICP_POINTS = 8192  # the k = 1 check's 2D points, each side
+PP_SOR = (20, 2.0)  # neighbours, std ratio
+PP_CLUSTER = (0.5, 10)  # eps, min points
+PP_TRUE_SIM = (np.radians(30.0), 1.05, 100.0, 0.0)  # theta, scale, tx, ty
+PP_GATES = {"ground_deg": 2.0, "georef_m": 2.0, "icp_deg": 0.5, "icp_m": 0.5,
+            "icp_scale": 1e-2, "route": 0.02}
+
+
+def event_ms(fn, reps: int = 1) -> float:
+    """Mean device time of ``reps`` calls of a slow ``fn`` (tens of ms and
+    more, where the host's enqueue time does not matter) between two CUDA
+    events, after one call that warms it up."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def event_call(fn):
+    """``(fn(), its device time in ms between two CUDA events)``: one call,
+    for a function too slow to call twice."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _bound(ops: float, nbytes: float, rate: float = H100_F64_INSTR) -> dict:
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def check_knn_shape(src, dst, k: int, exclude_self: bool, reps: int,
+                    library: bool = True) -> dict:
+    """``knn`` against its plain version bit for bit (d2 and indices), timed
+    beside the plain version, ``cdist`` (no matrix-product expansion) with
+    ``topk`` a chunk of rows at a time, and its bound: 8 FP64 instructions a
+    pair against the FP64 instruction rate, or the points read and the
+    neighbours written. With ``library`` false (the whole map, where the
+    plain version takes tens of seconds) the plain time is that of the
+    comparison's own call and the yardstick is not timed."""
+    import torch
+
+    from fastliosam_tpu_torch.ops import kneighbors_cuda
+
+    n, m = src.shape[0], dst.shape[0]
+    k_d2, k_idx = kneighbors_cuda.knn_cuda(src, dst, k, exclude_self)
+    (r_d2, r_idx), compare_ms = event_call(
+        lambda: kneighbors_cuda.knn_ref(src, dst, k, exclude_self))
+    if not (torch.equal(k_d2.view(torch.int64), r_d2.view(torch.int64))
+            and torch.equal(k_idx, r_idx)):
+        raise AssertionError(f"knn {n}x{m} k={k}: kernel and plain version differ "
+                             f"({int((k_idx != r_idx).sum())} indices)")
+    rows = max(1, (1 << 26) // m)
+
+    def yardstick():  # unused by the port
+        for s in range(0, n, rows):
+            d = torch.cdist(src[s:s + rows], dst, compute_mode="donot_use_mm_for_euclid_dist")
+            if exclude_self:
+                r = torch.arange(s, min(s + rows, n), device=src.device)
+                d[r - s, r] = float("inf")
+            torch.topk(d, k, dim=1, largest=False)
+
+    rec = {"shape": [n, m, k], "exclude_self": exclude_self, "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: kneighbors_cuda.knn_cuda(src, dst, k, exclude_self), reps),
+           "plain_ms": (event_ms(lambda: kneighbors_cuda.knn_ref(src, dst, k, exclude_self))
+                        if library else compare_ms),
+           "library_ms": event_ms(yardstick) if library else None,
+           **_bound(8.0 * n * (m - int(exclude_self)), (n + (0 if exclude_self else m)) * 24
+                    + n * k * 16)}
+    lib = f"{rec['library_ms']:.4f} ms" if library else "not timed"
+    print(f"  knn {n}x{m} k={k}{' (self excluded)' if exclude_self else ''}: bit for bit; "
+          f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cdist+topk {lib}, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def check_voxel_edges(pts, eps: float, reps: int = 10) -> dict:
+    """``voxel_edges`` against its plain version (edges equal), timed beside
+    it; no one PyTorch call computes it. Its bound counts the pair tests the
+    data needs (every pair where there is no edge, one where there is) and
+    the points, keys and offsets read and the edges written."""
+    import torch
+
+    from fastliosam_tpu_torch.ops import cluster_cuda
+    from fastliosam_tpu_torch.postprocess.cleanup import voxelize
+
+    vox = voxelize(pts, eps)
+    sorted_pts, keys, offsets = args = (vox.sorted_pts, vox.keys, vox.offsets)
+    got = cluster_cuda.voxel_edges_cuda(*args, eps)
+    want = cluster_cuda.voxel_edges_ref(*args, eps)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"voxel_edges: {int((got != want).sum())} edges differ")
+    counts = offsets[1:] - offsets[:-1]
+    code = cluster_cuda.key_coder(keys)
+    codes, pairs = code(keys), 0
+    for o, off in enumerate(cluster_cuda.OFFSETS):
+        want_code = code(keys + torch.tensor(off, device=keys.device))
+        nb = torch.searchsorted(codes, want_code).clamp(max=len(keys) - 1)
+        exists = codes[nb] == want_code
+        full = counts * counts[nb]
+        pairs += int(torch.where(got[:, o] >= 0, 1, torch.where(exists, full, 0)).sum())
+    v = len(keys)
+    rec = {"shape": [len(sorted_pts), v], "eps": eps, "max_abs_err": 0.0,
+           "edges": int((got >= 0).sum()),
+           "ms": cuda_ms(lambda: cluster_cuda.voxel_edges_cuda(*args, eps), reps),
+           "plain_ms": event_ms(lambda: cluster_cuda.voxel_edges_ref(*args, eps)),
+           "library_ms": None, "pair_tests_needed": pairs,
+           **_bound(8.0 * pairs, len(sorted_pts) * 24 + v * 24 + (v + 1) * 8 + v * 13 * 8)}
+    print(f"  voxel_edges {len(sorted_pts)} points, {v} voxels, eps {eps}: edges equal "
+          f"({rec['edges']} of them); kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def _detector_head(path: Path, anchors: int = 8400, classes: int = 2) -> None:
+    """A stub YOLOv8-style TorchScript head: a fixed seeded (1, 4 + nc,
+    anchors) output whose scores move with the input's mean (distinct
+    scores), saved to ``path``."""
+    import torch
+
+    rng = np.random.default_rng(12)
+    base = np.zeros((1, 4 + classes, anchors), np.float32)
+    base[0, :2] = rng.uniform(20, 620, (2, anchors))
+    base[0, 2:4] = rng.uniform(8, 160, (2, anchors))
+    base[0, 4:] = rng.uniform(0, 0.6, (classes, anchors))
+
+    class Head(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("base", torch.from_numpy(base))
+
+        def forward(self, x):
+            out = self.base.clone()
+            out[:, 4:] = out[:, 4:] + x.mean()
+            return out
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.jit.script(Head()).save(str(path))
+
+
+def postprocess_phase(dev, map_pcd: Path, corridor, gps_kf, fig8, fig8_traj) -> dict:
+    """The post-processing toolbox (``fastliosam_tpu_torch.postprocess``)
+    on the KITTI phase's exported map and on the GPS and per-scan phases'
+    trajectories. Kernel checks first (not counted), on subsets and at the
+    main path's own inputs, then the main path with every count at 0: ``denoise_slam_map`` on the whole map twice
+    (masks bit for bit), ``ransac_ground_plane``, ``georeference_trajectory``,
+    ``icp_2d_with_scale``, ``match_trajectory`` and the detector."""
+    import torch
+
+    from fastliosam_tpu_torch.io.pcd import read_pcd, xyz_of
+    from fastliosam_tpu_torch.postprocess import (Similarity2D, denoise_slam_map,
+                                                  euclidean_clusters, georeference_trajectory,
+                                                  icp_2d_with_scale, ransac_ground_plane,
+                                                  sor_denoise)
+    from fastliosam_tpu_torch.postprocess.align import _apply_t, _pad_z
+    from fastliosam_tpu_torch.postprocess.detect import YoloDetector, decode_yolo, nms, to_chw
+    from fastliosam_tpu_torch.postprocess.mapmatch import match_trajectory, route_length
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    xyz = xyz_of(read_pcd(str(map_pcd)))
+    rng = np.random.default_rng(10)
+    sub = torch.from_numpy(xyz[rng.choice(len(xyz), PP_SUBSET, replace=False)]).to(dev)
+    pair = rng.choice(len(xyz), 2 * PP_ICP_POINTS, replace=False)
+    flat = torch.nn.functional.pad(torch.from_numpy(xyz[pair, :2]).to(dev), (0, 1)).contiguous()
+    print(f"  kernels ({card}):")
+    kernels = {"knn": check_knn_shape(sub, sub, PP_SOR[0], True, reps=3),
+               "voxel_edges": check_voxel_edges(sub, PP_CLUSTER[0])}
+    kernels["knn"]["at_icp_shape"] = check_knn_shape(
+        flat[:PP_ICP_POINTS].contiguous(), flat[PP_ICP_POINTS:].contiguous(), 1, False, reps=10)
+    del sub, flat
+
+    # the inputs of the alignment and matching runs
+    kf_t, kf_p = gps_kf
+    fixes = gps_fixes(corridor)
+    gps_lat, gps_lon, gps_alt = (np.array([getattr(f, a) for f in fixes])
+                                 for a in ("lat", "lon", "alt"))
+    theta, scale, tx, ty = PP_TRUE_SIM
+    true = Similarity2D(scale, theta, tx, ty)
+    init = Similarity2D(scale, theta + np.radians(5.0), tx + 1.2, ty - 1.6)
+    icp_src, icp_dst = fig8_traj[:, :2, 3], true.apply(fig8["gt_p"][: len(fig8_traj), :2])
+
+    # the kernels again at the main path's own inputs: the whole map (the
+    # SOR's k-NN), its SOR-kept points (the clustering's voxels) and the
+    # ICP's first iteration
+    print(f"  kernels at the main path's inputs ({card}):")
+    full = torch.from_numpy(xyz).to(dev)
+    icp_cur = _apply_t(init, torch.from_numpy(np.asarray(icp_src, np.float64)).to(dev))
+    icp_ref = torch.from_numpy(np.asarray(icp_dst, np.float64)).to(dev)
+    kernels["knn"]["at_main_path"] = {
+        "sor": check_knn_shape(full, full, PP_SOR[0], True, reps=3, library=False),
+        "icp": check_knn_shape(_pad_z(icp_cur), _pad_z(icp_ref), 1, False, reps=10)}
+    sor_keep = torch.from_numpy(sor_denoise(xyz, *PP_SOR, device=dev)).to(dev)
+    kernels["voxel_edges"]["at_main_path"] = check_voxel_edges(full[sor_keep], PP_CLUSTER[0])
+    del full, sor_keep
+    head = ROOT / "build" / "pp_phase" / "head.pt"
+    _detector_head(head)
+    image = rng.integers(0, 255, (640, 640, 3)).astype(np.uint8)
+
+    def main_path():
+        out, t0 = {}, time.perf_counter()
+        masks = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            masks.append(denoise_slam_map(xyz, sor_neighbors=PP_SOR[0], sor_std=PP_SOR[1],
+                                          cluster_eps=PP_CLUSTER[0],
+                                          cluster_min_points=PP_CLUSTER[1], device=dev))
+            out.setdefault("denoise_s", []).append(time.perf_counter() - t1)
+        out["masks"] = masks
+        out["labels"] = euclidean_clusters(xyz[masks[0]], *PP_CLUSTER, device=dev)
+        t1 = time.perf_counter()
+        out["plane"], out["inliers"] = ransac_ground_plane(xyz, device=dev)
+        out["ransac_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["georef"] = georeference_trajectory(kf_t, kf_p, corridor["gps_t"], gps_lat,
+                                                gps_lon, gps_alt, device=dev)
+        out["icp"] = icp_2d_with_scale(icp_src, icp_dst, init=init, device=dev)
+        out["align_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        sim = out["georef"][2]
+        out["xy"] = sim.apply(kf_p[:, :2])
+        out["net"] = corridor_roads(corridor, fixes)
+        out["match"] = match_trajectory(out["xy"], out["net"], device=dev)
+        out["match_s"] = time.perf_counter() - t1
+        det = YoloDetector(str(head), imgsz=640, conf=0.25, device=dev)
+        out["raw"] = det.model(to_chw(image))
+        out["detect"] = decode_yolo(out["raw"], 0.25, device=dev)
+        out["path_s"] = time.perf_counter() - t0
+        return out
+
+    out, launches = _launch_counts(main_path)
+    keep = out["masks"][0]
+    plane = out["plane"]
+    ground_deg = float(np.degrees(np.arccos(min(1.0, abs(plane[2])))))
+    lat, lon, sim_g, report = out["georef"]
+    sim_i, rms = out["icp"]
+    edge, snapped, matched = out["match"]
+    travelled = _gt_length(corridor, kf_t)
+    route = route_length(snapped[matched])
+    raw = out["raw"]
+    on_card = decode_yolo(raw, 0.25, device=dev)
+    on_cpu = decode_yolo(raw.cpu(), 0.25, device="cpu")
+    boxes = out["detect"][0]
+    nms_card = nms(torch.from_numpy(boxes).to(dev), torch.from_numpy(out["detect"][1]).to(dev))
+    nms_cpu = nms(boxes, out["detect"][1], device="cpu")
+    result = {
+        "card": card, "map_points": len(xyz), "kept": int(keep.sum()),
+        "kept_share": float(keep.mean()), "clusters": int(out["labels"].max() + 1),
+        "denoise_s": out["denoise_s"], "masks_bit_identical":
+            bool(np.array_equal(out["masks"][0], out["masks"][1])),
+        "ransac_s": out["ransac_s"], "ground_plane": plane.tolist(),
+        "ground_normal_deg": ground_deg, "ground_inliers": int(out["inliers"].sum()),
+        "georef_mean_error_m": report["mean_error_m"], "georef_pairs": report["n_pairs"],
+        "georef_keyframes": len(kf_t),
+        "icp": {"theta_err_deg": abs(float(np.degrees(sim_i.theta - theta))),
+                "t_err_m": float(np.hypot(sim_i.tx - tx, sim_i.ty - ty)),
+                "scale_err": abs(sim_i.scale - scale), "rms_m": rms,
+                "points": len(icp_src)},
+        "align_s": out["align_s"],
+        "mapmatch": {"points": len(edge), "on_centreline": int((edge == 0).sum()),
+                     "route_m": route, "travelled_m": travelled,
+                     "route_rel_err": abs(route - travelled) / travelled},
+        "match_s": out["match_s"],
+        "detections": int(len(out["detect"][1])),
+        "head_on_card": raw.device.type == "cuda",
+        "launches": launches, "path_s": out["path_s"],
+    }
+    result["phase_s"] = time.perf_counter() - t_phase
+    print("  " + json.dumps(result))
+    print(f"  postprocess ({card}): {len(xyz)}-point map, kept {result['kept_share']:.4f}, "
+          f"{result['clusters']} clusters, denoise {', '.join(f'{s:.2f}' for s in out['denoise_s'])}"
+          f" s, knn x{launches['knn']}, voxel_edges x{launches['voxel_edges']}; ground "
+          f"{ground_deg:.3f} deg off +z; georef mean error {report['mean_error_m']:.3f} m; ICP-2D "
+          f"{result['icp']['theta_err_deg']:.4f} deg / {result['icp']['t_err_m']:.4f} m / "
+          f"{result['icp']['scale_err']:.2e}; route {route:.2f} m of {travelled:.2f} m; "
+          f"phase {result['phase_s']:.1f} s")
+    _fail("postprocess phase", {
+        "denoise masks bit for bit": result["masks_bit_identical"],
+        "kept points all clustered": bool((out["labels"] >= 0).all()),
+        "some points kept": result["kept"] > 0,
+        f"ground normal within {PP_GATES['ground_deg']} deg of +z":
+            ground_deg < PP_GATES["ground_deg"],
+        f"georeference mean error < {PP_GATES['georef_m']} m":
+            report["mean_error_m"] < PP_GATES["georef_m"],
+        "ICP-2D recovers the similarity": result["icp"]["theta_err_deg"] < PP_GATES["icp_deg"]
+            and result["icp"]["t_err_m"] < PP_GATES["icp_m"]
+            and result["icp"]["scale_err"] < PP_GATES["icp_scale"],
+        "every point matched to the centreline": bool(matched.all() and (edge == 0).all()),
+        f"route length within {PP_GATES['route']:.0%} of the distance travelled":
+            result["mapmatch"]["route_rel_err"] < PP_GATES["route"],
+        "detector head ran on the card": result["head_on_card"],
+        "decode_yolo on the card = on the CPU": all(
+            np.array_equal(a, b) for a, b in zip(on_card, on_cpu)) and len(on_cpu[1]) > 0,
+        "nms on the card = on the CPU": np.array_equal(nms_card, nms_cpu),
+        "knn and voxel_edges launched": launches["knn"] > 0 and launches["voxel_edges"] > 0,
+    })
+    return {"result": result, "kernels": kernels}
+
+
+def corridor_roads(corridor, fixes):
+    """The corridor's road network in the ENU frame of its first fix (the
+    frame ``georeference_trajectory`` anchors there): the centreline (the
+    ground-truth path every 10 scans and its last point, run on 20 m past
+    both ends, as a road goes on past a drive), two parallel roads 40 m
+    off and one crossing road through its middle."""
+    import torch
+
+    from fastliosam_tpu_torch.core.geodesy import LocalCartesian
+    from fastliosam_tpu_torch.postprocess.mapmatch import RoadNetwork
+
+    bench = LocalCartesian.from_origin(22.3193, 114.1694, 10.0)  # gps_fixes' anchor
+    first = LocalCartesian.from_origin(fixes[0].lat, fixes[0].lon, fixes[0].alt)
+    path = np.concatenate([corridor["gt_p"][::10], corridor["gt_p"][-1:]]).astype(np.float32)
+    lat, lon, alt = bench.reverse(torch.from_numpy(path))
+    centre = first.forward(lat, lon, alt).numpy()[:, :2].astype(np.float64)
+    d = (centre[-1] - centre[0]) / np.linalg.norm(centre[-1] - centre[0])
+    centre = np.concatenate([centre[:1] - 20 * d, centre, centre[-1:] + 20 * d])
+    normal = np.array([-d[1], d[0]])
+    mid = centre.mean(0)
+    return RoadNetwork([centre, centre + 40 * normal, centre - 40 * normal,
+                        np.stack([mid - 100 * normal, mid + 100 * normal])])
+
+
+def _gt_length(corridor, stamps) -> float:
+    """Ground-truth path length between the first and the last of
+    ``stamps``: the distance travelled."""
+    t = corridor["stamps"]
+    i0, i1 = (int(np.argmin(np.abs(t - s))) for s in (stamps[0], stamps[-1]))
+    p = corridor["gt_p"][i0:i1 + 1, :2]
+    return float(np.linalg.norm(np.diff(p, axis=0), axis=1).sum())
+
+
 def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     """Device time by kernel over the traced window, and the device's busy
     share of the window's wall time (the port runs on one stream, so the
@@ -2834,11 +3215,11 @@ def main(argv=None) -> int:
             kernels["query_cached"] = check_query(dev, fig8, fig8_map)
             del fig8_map
             print("per-scan phase (SlamEngine.process):")
-            per_scan = per_scan_phase(dev, fig8)
+            per_scan, fig8_traj = per_scan_phase(dev, fig8)
             print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")
             chunked = chunked_phase(dev, fig8, args.chunk)
             print(f"GPS phase (corridor, SlamEngine.process_chunk, chunk {args.chunk}):")
-            gps = gps_phase(dev, corridor, args.chunk)
+            gps, gps_kf = gps_phase(dev, corridor, args.chunk)
             print("modes phase (cached + point-to-plane per scan; merged2 + multi-start chunked):")
             modes = modes_phase(dev, fig8, args.chunk)
             t0 = time.perf_counter()
@@ -2860,6 +3241,11 @@ def main(argv=None) -> int:
             print(f"mesh phase (SlamEngine(mesh=make_mesh({MESH_RANKS})), gloo ranks on one "
                   f"card, process_chunk, chunk {args.chunk}; then NCCL at world size 1):")
             mesh = mesh_phase(dev, fig8_job.result(), args.chunk)
+            print("postprocess phase (fastliosam_tpu_torch.postprocess on the KITTI export, the "
+                  "GPS keyframes and the figure-8 trajectory):")
+            pp = postprocess_phase(dev, ROOT / "build" / "kitti_export" / "00_map.pcd",
+                                   corridor, gps_kf, fig8, fig8_traj)
+            kernels.update(pp["kernels"])
             if args.profile_scans > 0:
                 print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
                 per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
@@ -2876,7 +3262,8 @@ def main(argv=None) -> int:
              "batched": batched["launches"], "batched_cached": batched["cached"]["launches"],
              "mesh": {k: sum(r[k] for r in mesh["launches_per_rank"])
                       for k in mesh["launches_per_rank"][0]},
-             "mesh_nccl": mesh["nccl"]["launches"]}
+             "mesh_nccl": mesh["nccl"]["launches"],
+             "postprocess": pp["result"]["launches"]}
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
@@ -2903,7 +3290,7 @@ def main(argv=None) -> int:
             {"card": card_line(), "kernels": line["kernels"], "gather_cases": gather_cases,
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
              "modes": modes, "kitti": kitti, "bag": bag, "batched": batched, "mesh": mesh,
-             "timing_floor_ms": floor,
+             "postprocess": pp, "timing_floor_ms": floor,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))
     print(json.dumps(line))

@@ -1,8 +1,19 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version."""
-from . import assoc_cuda, gather_cuda, insert_cuda, nn_cuda, query_cuda, take_along_cuda  # noqa: F401
+from . import (  # noqa: F401
+    assoc_cuda,
+    cluster_cuda,
+    gather_cuda,
+    insert_cuda,
+    kneighbors_cuda,
+    nn_cuda,
+    query_cuda,
+    take_along_cuda,
+)
 from .assoc_cuda import merged_moments, merged_moments_cuda, merged_moments_ref  # noqa: F401
+from .cluster_cuda import voxel_edges, voxel_edges_cuda, voxel_edges_ref  # noqa: F401
 from .gather_cuda import gather_rows, gather_rows_cuda, gather_rows_ref  # noqa: F401
 from .insert_cuda import insert_claim, insert_claim_cuda, insert_claim_ref  # noqa: F401
+from .kneighbors_cuda import knn, knn_cuda, knn_ref  # noqa: F401
 from .nn_cuda import (  # noqa: F401
     nearest_neighbors,
     nearest_neighbors_cuda,
@@ -17,4 +28,5 @@ from .take_along_cuda import (  # noqa: F401
 
 # every kernel module: KERNEL (name, route, source, replaces), launches,
 # reset_launches()
-KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda, assoc_cuda, insert_cuda, query_cuda)
+KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda, assoc_cuda, insert_cuda, query_cuda,
+                  kneighbors_cuda, cluster_cuda)

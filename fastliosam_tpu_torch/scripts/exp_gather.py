@@ -4,6 +4,7 @@
 ``take_along_axis`` forms), at their shapes.
 
     python -m fastliosam_tpu_torch.scripts.exp_gather [--device cuda] [--reps 10]
+    python -m fastliosam_tpu_torch.scripts.exp_gather --lanes [--reps 200] [--turns 4]
 
 Each experiment draws a fresh index set for every timed rep (as the JAX
 scripts' ``timeit_fresh`` does), checks the kernel against its plain
@@ -17,6 +18,13 @@ the output write. On the card a ceiling probe follows the map-size
 256 MB, and nothing else (no index read), the rate random sectors reach
 from HBM. On the CPU (``--device cpu``) the plain versions run, nothing is
 timed and the probe is skipped. Prints one line per experiment.
+
+``--lanes`` runs one other experiment instead: the batched rollout's
+lane-major row gather (``gather_rows(..., lane_major=True)`` of an (8, 2^19,
+10) float32 table at (8, 8192) int64 slots) against ``torch.gather`` of the
+same rows, timed in turns (kernel, library, library, kernel, ...) over
+``--reps`` fresh slot sets each, so that a drift of the card's clock falls
+on both alike.
 """
 from __future__ import annotations
 
@@ -144,6 +152,40 @@ def ceiling_probe(dev, words: int, n: int, reps: int, seed: int = 0) -> dict:
             "achieved_bytes_per_s": nbytes / (ms * 1e-3), "device": dev.type}
 
 
+def lane_gather_turns(device=None, reps: int = 200, turns: int = 4, lanes: int = 8,
+                      c: int = 1 << 19, d: int = 10, n: int = 8192, seed: int = 0) -> dict:
+    """The lane-major row gather against ``torch.gather`` in turns (see the
+    module docstring); each turn's mean device time over ``reps`` fresh slot
+    sets. Raises if the three reads differ."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(lanes, c, d)).astype(np.float32)).to(dev)
+    slots = [torch.from_numpy(rng.integers(0, c, size=(lanes, n))).to(dev) for _ in range(reps)]
+    wide = [s[..., None].expand(-1, -1, d) for s in slots]
+    got = gather_cuda.gather_rows(table, slots[0], lane_major=True)
+    if not (torch.equal(_bits(got), _bits(gather_cuda.gather_rows_ref(table, slots[0],
+                                                                        lane_major=True)))
+            and torch.equal(_bits(got), _bits(torch.gather(table, 1, wide[0])))):
+        raise AssertionError("lane gather: kernel, plain version and torch.gather differ")
+    rec = {"name": "lane_rows", "table": [lanes, c, d], "idx": [lanes, n], "reps": reps,
+           "device": dev.type, "kernel_ms": [], "library_ms": []}
+    if dev.type != "cuda":
+        return rec
+    for t in range(turns):
+        for who in (("kernel", "library") if t % 2 == 0 else ("library", "kernel")):
+            if who == "kernel":
+                rec["kernel_ms"].append(device_ms(
+                    lambda s: gather_cuda.gather_rows(table, s, lane_major=True),
+                    [(s,) for s in slots]))
+            else:
+                rec["library_ms"].append(device_ms(lambda i: torch.gather(table, 1, i),
+                                                   [(i,) for i in wide]))
+    rec["kernel_mean_ms"] = float(np.mean(rec["kernel_ms"]))
+    rec["library_mean_ms"] = float(np.mean(rec["library_ms"]))
+    rec["faster"] = "kernel" if rec["kernel_mean_ms"] < rec["library_mean_ms"] else "library"
+    return rec
+
+
 def run(device=None, reps: int = 10, seed: int = 0, exps=None, print_fn=print) -> list[dict]:
     """Run every experiment (and, on the card, the ceiling probe beside the
     map-size take_along_axis); returns one record per experiment and prints
@@ -179,7 +221,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--reps", type=int, default=10, help="fresh index sets timed")
     ap.add_argument("--json", action="store_true", help="print the records as JSON too")
+    ap.add_argument("--lanes", action="store_true",
+                    help="time the lane-major row gather against torch.gather instead")
+    ap.add_argument("--turns", type=int, default=4, help="--lanes: timed turns of each")
     args = ap.parse_args(argv)
+    if args.lanes:
+        print(json.dumps(lane_gather_turns(args.device, reps=args.reps, turns=args.turns)))
+        return 0
     recs = run(args.device, reps=args.reps)
     if args.json:
         print(json.dumps(recs))

@@ -1115,3 +1115,62 @@ def test_sharded_map_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
         np.testing.assert_array_equal(o["map.fp2"], m2.fp.cpu().numpy())
         np.testing.assert_allclose(o["map.moments2"], m2.moments.cpu().numpy(),
                                    rtol=1e-6, atol=1e-5)
+
+
+# the post-processing toolbox's float64 kernels: k nearest neighbours
+# (csrc/knn.cu) and the clustering's neighbour-voxel test (csrc/cluster.cu),
+# each bit for bit against its plain version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k,exclude_self", [(5000, 5000, 20, True), (1000, 3001, 1, False),
+                                                (333, 77, 32, False), (130, 130, 5, True)])
+def test_knn_kernel_matches_plain_version(cuda_device, n, m, k, exclude_self):
+    from fastliosam_tpu_torch.ops import kneighbors_cuda
+
+    rng = np.random.default_rng(n + m + k)
+    dst = rng.normal(size=(m, 3)) * 4
+    # exact duplicates: ties that must go to the lower index
+    dst[1::7] = dst[0::7][: len(dst[1::7])]
+    src = dst.copy() if exclude_self else rng.normal(size=(n, 3)) * 4
+    s, d = torch.from_numpy(src).to(cuda_device), torch.from_numpy(dst).to(cuda_device)
+    before = kneighbors_cuda.launches
+    k_d2, k_idx = kneighbors_cuda.knn(s, d, k, exclude_self)
+    r_d2, r_idx = kneighbors_cuda.knn_ref(s, d, k, exclude_self)
+    torch.cuda.synchronize()
+    assert kneighbors_cuda.launches == before + 1
+    assert torch.equal(k_d2.view(torch.int64), r_d2.view(torch.int64))
+    assert torch.equal(k_idx, r_idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,eps", [(20000, 0.5), (3000, 0.2), (1, 0.5)])
+def test_voxel_edges_kernel_matches_plain_version(cuda_device, n, eps):
+    from fastliosam_tpu_torch.ops import cluster_cuda
+    from fastliosam_tpu_torch.postprocess.cleanup import voxelize
+
+    rng = np.random.default_rng(n)
+    pts = torch.from_numpy(rng.uniform(-5, 5, size=(n, 3))).to(cuda_device)
+    vox = voxelize(pts, eps)
+    args = (vox.sorted_pts, vox.keys, vox.offsets, eps)
+    before = cluster_cuda.launches
+    got = cluster_cuda.voxel_edges(*args)
+    want = cluster_cuda.voxel_edges_ref(*args)
+    torch.cuda.synchronize()
+    assert cluster_cuda.launches == before + 1
+    assert torch.equal(got, want)
+    if n > 1:
+        assert 0 < int((got >= 0).sum()) < got.numel()
+
+
+@pytest.mark.cuda
+def test_postprocess_cleanup_on_the_card_equals_the_cpu(cuda_device):
+    from fastliosam_tpu_torch.postprocess import denoise_slam_map, euclidean_clusters
+
+    rng = np.random.default_rng(5)
+    xyz = np.concatenate([rng.normal(size=(4000, 3)) * 2, rng.uniform(-40, 40, size=(200, 3))])
+    for kw in ({}, {"cluster_eps": 0.5, "cluster_min_points": 10}):
+        assert np.array_equal(denoise_slam_map(xyz, **kw),
+                              denoise_slam_map(xyz, device="cpu", **kw))
+    assert np.array_equal(euclidean_clusters(xyz, 0.7, 5), euclidean_clusters(xyz, 0.7, 5,
+                                                                               device="cpu"))

@@ -98,6 +98,14 @@ def test_exp_gather_entry_point_plain_path_on_cpu():
     assert a["bytes"] <= 64 * 64 + 64 * 4 + 64 * 64
 
 
+def test_exp_gather_lane_turns_plain_path_on_cpu(capsys):
+    rec = exp_gather.lane_gather_turns("cpu", reps=2, lanes=3, c=1 << 10, n=64)
+    assert rec["table"] == [3, 1 << 10, 10] and rec["idx"] == [3, 64]
+    assert rec["kernel_ms"] == [] and rec["library_ms"] == []  # untimed on the CPU
+    assert exp_gather.main(["--lanes", "--device", "cpu", "--reps", "1"]) == 0
+    assert '"name": "lane_rows"' in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("row_shape", [(), (3,), (10,), (6, 6)])
 def test_fixed_order_scatter_add_equals_index_add_on_cpu(rng, row_shape):
     for n, size in ((1, 1), (5000, 300), (4096, 1 << 12), (700, 2)):

@@ -141,18 +141,25 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      16,384 (``at_mesh_rank_shape`` in the kernels line);
  12. postprocess phase, the post-processing toolbox
      (``fastliosam_tpu_torch.postprocess``) on phase 8's export and the
-     trajectories of phases 4 and 6: first the float64 k-NN kernel
-     (``csrc/knn.cu``) bit for bit with its plain version at k = 20 on
-     65,536 points of the exported map (self excluded, the SOR's use) and
-     at k = 1 on 8192 x 8192 of its points' xy (z = 0, the ICP-2D's use,
-     under ``at_icp_shape``), and the clustering's neighbour-voxel kernel
+     trajectories of phases 4 and 6: first the float64 k-NN kernels
+     (``csrc/knn.cu``: the cell-grid search, and brute force below
+     ``GRID_MIN_DST`` destinations) bit for bit with their plain version at
+     k = 20 and k = 50 (``at_k50``) on 65,536 points of the exported map
+     (self excluded, the SOR's use), at k = 1 on 8192 x 8192 of its points'
+     xy (z = 0, the ICP-2D's use, under ``at_icp_shape``) and on
+     ``scripts/exp_knn.py``'s hazard sets through both routes (cell faces,
+     ties across cells, outliers, one dense cell, z = 0, queries that are
+     not the points, k = M - 1, georeferenced coordinates, k above 32;
+     ``hazards``), and the clustering's neighbour-voxel kernel
      (``csrc/cluster.cu``) on the 65,536 points, edges equal, each timed
-     beside its plain version, ``cdist`` + ``topk`` for the k-NN and its
-     bound (8 FP64 instructions a pair at 16.75e12 a second); then both
-     again at the main path's own inputs (``at_main_path``): the k-NN on
-     the whole map at k = 20 and on the ICP's first iteration at k = 1,
-     the neighbour-voxel kernel on the SOR-kept points; then the path,
-     counted:
+     beside its plain version, ``cdist`` + ``topk`` for the k-NN, its pair
+     tests a query and its bound (the pairs it tests, 8 FP64 instructions
+     each at 16.75e12 a second, or its bytes; the all-pairs bound beside
+     it); then both again at the main path's own inputs (``at_main_path``):
+     the k-NN on the whole map at k = 20 (its ``cdist`` + ``topk`` timed
+     on 4096 of the query rows only, ``library_ms_rows``) and on the
+     ICP's first iteration at k = 1, the neighbour-voxel kernel on the
+     SOR-kept points; then the path, counted:
      ``denoise_slam_map`` on all of the exported map (SOR 20 / 2.0,
      clusters of 0.5 m / 10 points) twice, masks bit for bit;
      ``ransac_ground_plane`` (normal within 2 degrees of +z);
@@ -2767,6 +2774,7 @@ def mesh_phase(dev, feed_path: str, chunk: int = 5, n_scans: int | None = None,
 H100_F64_INSTR = 16.75e12
 PP_SUBSET = 65536  # the kernel checks' points of the exported map
 PP_ICP_POINTS = 8192  # the k = 1 check's 2D points, each side
+PP_YARDSTICK_ROWS = 4096  # the whole map's cdist + topk: timed on these query rows only
 PP_SOR = (20, 2.0)  # neighbours, std ratio
 PP_CLUSTER = (0.5, 10)  # eps, min points
 PP_TRUE_SIM = (np.radians(30.0), 1.05, 100.0, 0.0)  # theta, scale, tx, ty
@@ -2810,48 +2818,91 @@ def _bound(ops: float, nbytes: float, rate: float = H100_F64_INSTR) -> dict:
 
 
 def check_knn_shape(src, dst, k: int, exclude_self: bool, reps: int,
-                    library: bool = True) -> dict:
+                    library: bool = True, library_rows: int | None = None) -> dict:
     """``knn`` against its plain version bit for bit (d2 and indices), timed
     beside the plain version, ``cdist`` (no matrix-product expansion) with
-    ``topk`` a chunk of rows at a time, and its bound: 8 FP64 instructions a
-    pair against the FP64 instruction rate, or the points read and the
-    neighbours written. With ``library`` false (the whole map, where the
-    plain version takes tens of seconds) the plain time is that of the
-    comparison's own call and the yardstick is not timed."""
+    ``topk`` a chunk of rows at a time, and its bound. The bound counts the
+    pairs the kernel tests (the grid route's count from its counters, the
+    rescue pass's M a rescued query; all N x M for brute force), 8 FP64
+    instructions each against the FP64 instruction rate, or the points read
+    and the neighbours written, whichever is larger; the all-pairs bound
+    stands beside it. With ``library`` false (the whole map, where the plain
+    version takes tens of seconds) the plain time is that of the
+    comparison's own call, ``library_ms`` is null, and with
+    ``library_rows`` the yardstick runs on that many query rows against
+    every destination, its time under ``library_ms_rows``."""
     import torch
 
     from fastliosam_tpu_torch.ops import kneighbors_cuda
 
     n, m = src.shape[0], dst.shape[0]
-    k_d2, k_idx = kneighbors_cuda.knn_cuda(src, dst, k, exclude_self)
+    grid = m >= kneighbors_cuda.GRID_MIN_DST
+    search = {}
+    if grid:
+        from fastliosam_tpu_torch.scripts.exp_knn import grid_stats
+
+        k_d2, k_idx, stats, index = kneighbors_cuda._knn_grid(src, dst, k, exclude_self)
+        search = grid_stats(n, m, stats, index)
+        pairs = round(search.pop("pairs_per_query") * n)
+        search["cell_edge_m"] = search.pop("h") * 2 ** search["level"]
+    else:
+        k_d2, k_idx = kneighbors_cuda.knn_cuda(src, dst, k, exclude_self)
+        pairs = n * (m - int(exclude_self))
     (r_d2, r_idx), compare_ms = event_call(
         lambda: kneighbors_cuda.knn_ref(src, dst, k, exclude_self))
     if not (torch.equal(k_d2.view(torch.int64), r_d2.view(torch.int64))
             and torch.equal(k_idx, r_idx)):
         raise AssertionError(f"knn {n}x{m} k={k}: kernel and plain version differ "
                              f"({int((k_idx != r_idx).sum())} indices)")
-    rows = max(1, (1 << 26) // m)
 
-    def yardstick():  # unused by the port
-        for s in range(0, n, rows):
-            d = torch.cdist(src[s:s + rows], dst, compute_mode="donot_use_mm_for_euclid_dist")
+    def yardstick(rows_of=n):  # unused by the port
+        rows = max(1, (1 << 26) // m)
+        for s in range(0, rows_of, rows):
+            e = min(s + rows, rows_of)
+            d = torch.cdist(src[s:e], dst, compute_mode="donot_use_mm_for_euclid_dist")
             if exclude_self:
-                r = torch.arange(s, min(s + rows, n), device=src.device)
+                r = torch.arange(s, e, device=src.device)
                 d[r - s, r] = float("inf")
             torch.topk(d, k, dim=1, largest=False)
 
+    library_ms = event_ms(yardstick) if library else None
+    nbytes = (n + (0 if exclude_self else m)) * 24 + n * k * 16
     rec = {"shape": [n, m, k], "exclude_self": exclude_self, "max_abs_err": 0.0,
+           "dispatch": "grid" if grid else "brute",
            "ms": cuda_ms(lambda: kneighbors_cuda.knn_cuda(src, dst, k, exclude_self), reps),
            "plain_ms": (event_ms(lambda: kneighbors_cuda.knn_ref(src, dst, k, exclude_self))
                         if library else compare_ms),
-           "library_ms": event_ms(yardstick) if library else None,
-           **_bound(8.0 * n * (m - int(exclude_self)), (n + (0 if exclude_self else m)) * 24
-                    + n * k * 16)}
-    lib = f"{rec['library_ms']:.4f} ms" if library else "not timed"
-    print(f"  knn {n}x{m} k={k}{' (self excluded)' if exclude_self else ''}: bit for bit; "
-          f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cdist+topk {lib}, "
-          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+           "library_ms": library_ms, "pairs_tested": pairs, "pairs_per_query": pairs / n,
+           **search, **_bound(8.0 * pairs, nbytes),
+           "all_pairs_bound_ms": _bound(8.0 * n * (m - int(exclude_self)), nbytes)["bound_ms"]}
+    lib = "not timed" if library_ms is None else f"{library_ms:.4f} ms"
+    if library_rows and not library:
+        rec["library_rows"] = library_rows
+        rec["library_ms_rows"] = event_ms(lambda: yardstick(library_rows))
+        lib = f"{rec['library_ms_rows']:.4f} ms on {library_rows} of the {n} query rows"
+    print(f"  knn {n}x{m} k={k}{' (self excluded)' if exclude_self else ''}, {rec['dispatch']}: "
+          f"bit for bit; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cdist+topk "
+          f"{lib}, {rec['pairs_per_query']:.1f} pairs a query"
+          + (f" ({search['rescued']} rescued, {search['probes_per_query']:.1f} probes, level "
+             f"{search['level']}, cells {search['cell_edge_m']:.4f} m)" if grid else "")
+          + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; all pairs "
+          f"{rec['all_pairs_bound_ms']:.4f} ms)")
     return rec
+
+
+def check_knn_hazards(dev) -> dict:
+    """``scripts/exp_knn.py``'s hazard sets through both routes and the
+    dispatch, each bit for bit with the plain version."""
+    from fastliosam_tpu_torch.scripts import exp_knn
+
+    recs = exp_knn.run_hazards(dev, print_fn=lambda line: None)
+    bad = [r["hazard"] for r in recs
+           if not (r["brute_equal"] and r["grid_equal"] and r["dispatch_equal"])]
+    if bad:
+        raise AssertionError(f"knn hazard sets: kernel and plain version differ on {bad}")
+    print(f"  knn hazard sets ({', '.join(r['hazard'] for r in recs)}): both routes bit for "
+          f"bit; rescued {sum(r['rescued'] for r in recs)} queries in all")
+    return {"sets": len(recs), "rescued": {r["hazard"]: r["rescued"] for r in recs}}
 
 
 def check_voxel_edges(pts, eps: float, reps: int = 10) -> dict:
@@ -2947,8 +2998,10 @@ def postprocess_phase(dev, map_pcd: Path, corridor, gps_kf, fig8, fig8_traj) -> 
     print(f"  kernels ({card}):")
     kernels = {"knn": check_knn_shape(sub, sub, PP_SOR[0], True, reps=3),
                "voxel_edges": check_voxel_edges(sub, PP_CLUSTER[0])}
+    kernels["knn"]["at_k50"] = check_knn_shape(sub, sub, 50, True, reps=3)
     kernels["knn"]["at_icp_shape"] = check_knn_shape(
         flat[:PP_ICP_POINTS].contiguous(), flat[PP_ICP_POINTS:].contiguous(), 1, False, reps=10)
+    kernels["knn"]["hazards"] = check_knn_hazards(dev)
     del sub, flat
 
     # the inputs of the alignment and matching runs
@@ -2969,7 +3022,8 @@ def postprocess_phase(dev, map_pcd: Path, corridor, gps_kf, fig8, fig8_traj) -> 
     icp_cur = _apply_t(init, torch.from_numpy(np.asarray(icp_src, np.float64)).to(dev))
     icp_ref = torch.from_numpy(np.asarray(icp_dst, np.float64)).to(dev)
     kernels["knn"]["at_main_path"] = {
-        "sor": check_knn_shape(full, full, PP_SOR[0], True, reps=3, library=False),
+        "sor": check_knn_shape(full, full, PP_SOR[0], True, reps=3, library=False,
+                               library_rows=PP_YARDSTICK_ROWS),
         "icp": check_knn_shape(_pad_z(icp_cur), _pad_z(icp_ref), 1, False, reps=10)}
     sor_keep = torch.from_numpy(sor_denoise(xyz, *PP_SOR, device=dev)).to(dev)
     kernels["voxel_edges"]["at_main_path"] = check_voxel_edges(full[sor_keep], PP_CLUSTER[0])
@@ -3010,6 +3064,10 @@ def postprocess_phase(dev, map_pcd: Path, corridor, gps_kf, fig8, fig8_traj) -> 
         return out
 
     out, launches = _launch_counts(main_path)
+    from fastliosam_tpu_torch.ops import kneighbors_cuda
+
+    aux_launches = {"knn_cell_hash": kneighbors_cuda.build_launches,
+                    "knn_rescue": kneighbors_cuda.rescue_launches}
     keep = out["masks"][0]
     plane = out["plane"]
     ground_deg = float(np.degrees(np.arccos(min(1.0, abs(plane[2])))))
@@ -3044,7 +3102,7 @@ def postprocess_phase(dev, map_pcd: Path, corridor, gps_kf, fig8, fig8_traj) -> 
         "match_s": out["match_s"],
         "detections": int(len(out["detect"][1])),
         "head_on_card": raw.device.type == "cuda",
-        "launches": launches, "path_s": out["path_s"],
+        "launches": launches, "aux_launches": aux_launches, "path_s": out["path_s"],
     }
     result["phase_s"] = time.perf_counter() - t_phase
     print("  " + json.dumps(result))
@@ -3275,6 +3333,8 @@ def main(argv=None) -> int:
         rec["launches"] = sum(p[name] for p in paths.values())
         rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}
         rec.update(kernels[name])
+        if rec["route"] != mod.KERNEL["route"]:
+            raise AssertionError(f"{name}: a check overwrote the kernel's route")
         if name in at_localizer:
             rec["at_localizer_shape"] = at_localizer[name]
         if name in batched["kernels"]:

@@ -1122,18 +1122,43 @@ def test_sharded_map_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
 # each bit for bit against its plain version
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,m,k,exclude_self", [(5000, 5000, 20, True), (1000, 3001, 1, False),
-                                                (333, 77, 32, False), (130, 130, 5, True)])
-def test_knn_kernel_matches_plain_version(cuda_device, n, m, k, exclude_self):
-    from fastliosam_tpu_torch.ops import kneighbors_cuda
+from fastliosam_tpu_torch.ops.kneighbors_cuda import GRID_MIN_DST  # noqa: E402
+from fastliosam_tpu_torch.scripts import exp_knn  # noqa: E402
 
+KNN_HAZARDS = [name for name, *_ in exp_knn.hazard_sets(0, scale=0.5)]
+
+
+def _knn_case(case):
+    """``(src, dst, k, exclude_self)`` as numpy: random points with exact
+    duplicates for an ``(n, m, k, exclude_self)`` case, else the hazard set
+    of that name (``scripts/exp_knn.py``)."""
+    if isinstance(case, str):
+        _, src, dst, k, excl = next(s for s in exp_knn.hazard_sets(0, scale=0.5) if s[0] == case)
+        return src, dst, k, excl
+    n, m, k, excl = case
     rng = np.random.default_rng(n + m + k)
     dst = rng.normal(size=(m, 3)) * 4
     # exact duplicates: ties that must go to the lower index
     dst[1::7] = dst[0::7][: len(dst[1::7])]
-    src = dst.copy() if exclude_self else rng.normal(size=(n, 3)) * 4
-    s, d = torch.from_numpy(src).to(cuda_device), torch.from_numpy(dst).to(cuda_device)
+    return (dst if excl else rng.normal(size=(n, 3)) * 4), dst, k, excl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (5000, 5000, 20, True), (1000, 3001, 1, False), (333, 77, 32, False), (130, 130, 5, True),
+    # k above 32: the row list, on both routes
+    (3000, 3000, 33, True), (6000, 6000, 50, True), (2000, 5000, 100, False),
+    # both sides of the dispatch's crossover
+    (GRID_MIN_DST - 1, GRID_MIN_DST - 1, 20, True), (GRID_MIN_DST, GRID_MIN_DST, 20, True),
+    (GRID_MIN_DST - 1, GRID_MIN_DST - 1, 1, False), (GRID_MIN_DST, GRID_MIN_DST, 1, False),
+    (20000, 4 * GRID_MIN_DST, 20, False),
+    *KNN_HAZARDS])
+def test_knn_kernel_matches_plain_version(cuda_device, case):
+    from fastliosam_tpu_torch.ops import kneighbors_cuda
+
+    src_np, dst_np, k, exclude_self = _knn_case(case)
+    d = torch.from_numpy(np.ascontiguousarray(dst_np)).to(cuda_device)
+    s = d if src_np is dst_np else torch.from_numpy(np.ascontiguousarray(src_np)).to(cuda_device)
     before = kneighbors_cuda.launches
     k_d2, k_idx = kneighbors_cuda.knn(s, d, k, exclude_self)
     r_d2, r_idx = kneighbors_cuda.knn_ref(s, d, k, exclude_self)
@@ -1141,16 +1166,50 @@ def test_knn_kernel_matches_plain_version(cuda_device, n, m, k, exclude_self):
     assert kneighbors_cuda.launches == before + 1
     assert torch.equal(k_d2.view(torch.int64), r_d2.view(torch.int64))
     assert torch.equal(k_idx, r_idx)
+    # both routes, whichever the dispatch took, bit for bit
+    for route in (kneighbors_cuda._knn_brute, kneighbors_cuda._knn_grid):
+        g_d2, g_idx = route(s, d, k, exclude_self)[:2]
+        torch.cuda.synchronize()
+        assert torch.equal(g_d2.view(torch.int64), r_d2.view(torch.int64)), route.__name__
+        assert torch.equal(g_idx, r_idx), route.__name__
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,eps", [(20000, 0.5), (3000, 0.2), (1, 0.5)])
-def test_voxel_edges_kernel_matches_plain_version(cuda_device, n, eps):
+def test_knn_grid_route_rescues_far_queries_and_syncs_nothing(cuda_device):
+    from fastliosam_tpu_torch.ops import cluster_cuda, kneighbors_cuda
+    from fastliosam_tpu_torch.postprocess.cleanup import voxelize
+
+    street = torch.from_numpy(exp_knn.surface_cloud(3 * GRID_MIN_DST, 1)).to(cuda_device)
+    far = street[:64] + 5000.0  # past every probe budget
+    vox = voxelize(street, 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k_d2, k_idx = kneighbors_cuda.knn(far, street, 20)
+        stats = kneighbors_cuda._knn_grid(far, street, 20, False)[2]
+        nb = cluster_cuda.voxel_edges(vox.sorted_pts, vox.keys, vox.offsets, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rescued = int(stats[0])
+    r_d2, r_idx = kneighbors_cuda.knn_ref(far, street, 20)
+    assert rescued > 0
+    assert torch.equal(k_d2.view(torch.int64), r_d2.view(torch.int64))
+    assert torch.equal(k_idx, r_idx)
+    assert torch.equal(nb, cluster_cuda.voxel_edges_ref(vox.sorted_pts, vox.keys, vox.offsets,
+                                                        0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,eps,apart", [(20000, 0.5, 0.0), (3000, 0.2, 0.0), (1, 0.5, 0.0),
+                                          (20000, 2.0, 0.0), (6000, 0.5, 1.1e6)])
+def test_voxel_edges_kernel_matches_plain_version(cuda_device, n, eps, apart):
     from fastliosam_tpu_torch.ops import cluster_cuda
     from fastliosam_tpu_torch.postprocess.cleanup import voxelize
 
     rng = np.random.default_rng(n)
-    pts = torch.from_numpy(rng.uniform(-5, 5, size=(n, 3))).to(cuda_device)
+    pts = rng.uniform(-5, 5, size=(n, 3))
+    pts[::2, 0] += apart  # voxel keys over 2^21 apart
+    pts = torch.from_numpy(pts).to(cuda_device)
     vox = voxelize(pts, eps)
     args = (vox.sorted_pts, vox.keys, vox.offsets, eps)
     before = cluster_cuda.launches
@@ -1159,7 +1218,7 @@ def test_voxel_edges_kernel_matches_plain_version(cuda_device, n, eps):
     torch.cuda.synchronize()
     assert cluster_cuda.launches == before + 1
     assert torch.equal(got, want)
-    if n > 1:
+    if n > 1:  # (eps 2.0: ~160 points a voxel)
         assert 0 < int((got >= 0).sum()) < got.numel()
 
 

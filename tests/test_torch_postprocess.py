@@ -39,7 +39,7 @@ from fastliosam_tpu.postprocess import images as jimages
 from fastliosam_tpu.postprocess import mapmatch as jmm
 from fastliosam_tpu.postprocess import plots as jplots
 from fastliosam_tpu_torch import postprocess as tpp
-from fastliosam_tpu_torch.ops import cluster_cuda, kneighbors_cuda
+from fastliosam_tpu_torch.ops import cell_grid, cluster_cuda, kneighbors_cuda
 from fastliosam_tpu_torch.postprocess import align as talign
 from fastliosam_tpu_torch.postprocess import cleanup as tclean
 from fastliosam_tpu_torch.postprocess import detect as tdetect
@@ -47,6 +47,7 @@ from fastliosam_tpu_torch.postprocess import georef as tgeoref
 from fastliosam_tpu_torch.postprocess import images as timages
 from fastliosam_tpu_torch.postprocess import mapmatch as tmm
 from fastliosam_tpu_torch.postprocess import plots as tplots
+from fastliosam_tpu_torch.scripts import exp_knn
 
 CPU = "cpu"
 needs_cv2 = pytest.mark.skipif(not jimages.HAS_CV2, reason="cv2 unavailable")
@@ -99,7 +100,8 @@ def test_knn_plain_d2_equals_numpy_bit_for_bit(n, m):
     assert np.array_equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("k,exclude_self", [(1, False), (20, True), (32, False)])
+@pytest.mark.parametrize("k,exclude_self", [(1, False), (20, True), (32, False), (50, True),
+                                            (64, False)])
 def test_knn_plain_order_is_d2_then_index(k, exclude_self):
     rng = np.random.default_rng(k)
     dst = rng.integers(-3, 4, size=(400, 3)).astype(np.float64)  # many exact ties
@@ -111,6 +113,148 @@ def test_knn_plain_order_is_d2_then_index(k, exclude_self):
     order = np.lexsort((np.broadcast_to(np.arange(len(dst)), full.shape), full), axis=1)[:, :k]
     assert np.array_equal(idx.numpy(), order)
     assert np.array_equal(_bits(d2.numpy()), _bits(np.take_along_axis(full, order, 1)))
+
+
+def ip_level(index):
+    return int(index.iparams[6])
+
+
+def _cell_box(index):
+    """Each sorted point's coarse cell as ``(lo, hi)`` coordinates of its
+    faces, from the index's own keys, and the kernel's slack."""
+    h, mag = index.fparams.tolist()
+    ip = index.iparams.tolist()
+    base, level = np.array(ip[:3]), ip[6]
+    keys = np.floor(index.points[:, :3].numpy() / h).astype(np.int64) - base
+    cell = keys >> level
+    lo = (base + (cell << level)) * h
+    hi = (base + ((cell + 1) << level)) * h
+    return cell, lo, hi, 1e-12 * (mag + mag + h * 2.0**level)
+
+
+@pytest.mark.parametrize("case", ["street", "faces", "one_cell", "georeferenced", "plane_z0"])
+def test_cell_index_places_every_point_in_its_cell(case):
+    sets = {name: dst for name, _, dst, _, _ in exp_knn.hazard_sets(0, scale=0.1)}
+    dst = exp_knn.surface_cloud(3000, 1) if case == "street" else sets[case]
+    dst_t = torch.from_numpy(np.ascontiguousarray(dst))
+    index = cell_grid.cell_index(dst_t, 20)
+    m, n_cells = len(dst), int(index.n_cells)
+    order = index.points[:, 3].numpy().astype(np.int64)
+    # every point once, carrying its original index and coordinates
+    assert np.array_equal(np.sort(order), np.arange(m))
+    assert np.array_equal(order, index.order.numpy())
+    # the points as queries take the index's own order
+    assert torch.equal(cell_grid.query_order(dst_t, index), index.order)
+    assert np.array_equal(index.points[:, :3].numpy(), dst[order])
+    # fine keys within 2^21 a side, codes ascending
+    top = index.iparams[3:6].numpy()
+    assert (top >= 0).all() and (top < 1 << cell_grid.FINE_BITS).all()
+    assert (np.diff(index.codes.numpy()) >= 0).all()
+    # cell c holds exactly the points whose key names it, and each point lies
+    # in its cell's box within the kernel's slack
+    cell, lo, hi, slack = _cell_box(index)
+    start = index.cell_start.numpy()
+    assert start[0] == 0 and (np.diff(start[: n_cells + 1]) > 0).all() and start[n_cells] == m
+    owner = np.repeat(np.arange(n_cells), np.diff(start[: n_cells + 1]))
+    code = cell_grid.morton(torch.from_numpy(cell)).numpy()
+    assert np.array_equal(code, index.cell_code.numpy()[owner])
+    assert len(np.unique(index.cell_code.numpy()[:n_cells])) == n_cells
+    p = index.points[:, :3].numpy()
+    assert ((p >= lo - slack) & (p <= hi + slack)).all()
+    # the level's mean occupancy is the nearest (in ratio) to the target's
+    codes = index.codes.numpy()
+    per_level = [len(np.unique(codes >> (3 * lv))) for lv in range(cell_grid.FINE_BITS)]
+    assert per_level[ip_level(index)] == n_cells
+    miss = np.abs(np.log(m / np.array(per_level)) - np.log(max(2.0, cell_grid.OCCUPANCY * 21)))
+    assert miss[ip_level(index)] == miss.min() and (miss[ip_level(index) + 1:] > miss.min()).all()
+
+
+def _grid_pass(src, dst, k, exclude_self, queries, d2_out, idx_out):
+    """``csrc/knn.cu: knn_grid_kernel`` in numpy over the plain index: rings
+    clipped to the occupied cells, cells beyond the k-th d2 skipped, the
+    stop rule with its slack, the probe budget. Writes the finished
+    queries' rows and returns the queries handed to the rescue pass."""
+    index = cell_grid.cell_index(torch.from_numpy(dst), k)
+    h, mag = index.fparams.tolist()
+    ip = index.iparams.tolist()
+    base, level = ip[:3], ip[6]
+    kmax = [t >> level for t in ip[3:6]]
+    pts, start = index.points.numpy(), index.cell_start.numpy()
+    table = {c: i for i, c in enumerate(index.cell_code.numpy()[: int(index.n_cells)].tolist())}
+    handed = []
+    for i in queries:
+        q = src[i]
+        kq = [(int(np.floor(q[a] / h)) - base[a]) >> level for a in range(3)]
+        slack = 1e-12 * (np.abs(q).max() + mag + h * 2.0**level)
+        r = max(0, *(max(-kq[a], kq[a] - kmax[a]) for a in range(3)))
+        ds, js, probes, kd = [np.empty(0)], [np.empty(0, np.int64)], 0, np.inf
+        while True:
+            axes = [np.arange(max(kq[a] - r, 0), min(kq[a] + r, kmax[a]) + 1) for a in range(3)]
+            cells = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+            cells = cells[np.abs(cells - kq).max(1) == r]
+            # a cell whose box lies beyond the k-th d2 so far is skipped
+            lo = (np.array(base) + (cells << level)) * h
+            hi = (np.array(base) + ((cells + 1) << level)) * h
+            gap = np.maximum(np.maximum(np.maximum(lo - q, q - hi), 0.0) - slack, 0.0)
+            least = ((gap[:, 0] * gap[:, 0] + gap[:, 1] * gap[:, 1]) + gap[:, 2] * gap[:, 2]) * (
+                1 - 1e-12)
+            for c, cell_least in zip(cell_grid.morton(torch.from_numpy(cells)).tolist(), least):
+                if cell_least > kd:
+                    continue
+                probes += 1
+                if c in table:
+                    p = pts[start[table[c]]:start[table[c] + 1]]
+                    d = q - p[:, :3]
+                    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+                    j = p[:, 3].astype(np.int64)
+                    keep = j != i if exclude_self else np.ones(len(j), bool)
+                    ds.append(d2[keep])
+                    js.append(j[keep])
+                    d_all, j_all = np.concatenate(ds), np.concatenate(js)
+                    best = np.lexsort((j_all, d_all))[:k]
+                    kd = d_all[best[-1]] if len(best) == k else np.inf
+            d_all, j_all = np.concatenate(ds), np.concatenate(js)
+            best = np.lexsort((j_all, d_all))[:k]
+            gap = np.inf
+            for a in range(3):
+                if kq[a] + r + 1 <= kmax[a]:
+                    gap = min(gap, (base[a] + ((kq[a] + r + 1) << level)) * h - q[a])
+                if kq[a] - r - 1 >= 0:
+                    gap = min(gap, q[a] - (base[a] + ((kq[a] - r) << level)) * h)
+            g = gap - slack
+            if gap == np.inf or (g > 0 and kd < (g * g) * (1 - 1e-12)):
+                d2_out[i], idx_out[i] = d_all[best], j_all[best]
+                break
+            if probes > kneighbors_cuda.PROBE_BUDGET:
+                handed.append(i)
+                break
+            r += 1
+    return handed
+
+
+def _grid_search(src, dst, k, exclude_self):
+    """The grid route in numpy; a query handed to the rescue pass takes the
+    plain version's row, as that pass scans every point. Returns d2,
+    indices and the number of queries rescued."""
+    plain = kneighbors_cuda.knn_ref(torch.from_numpy(src), torch.from_numpy(dst), k, exclude_self)
+    d2_out = np.full(plain[0].shape, np.nan)
+    idx_out = np.full(plain[1].shape, -1)
+    rescued = _grid_pass(src, dst, k, exclude_self, range(len(src)), d2_out, idx_out)
+    d2_out[rescued], idx_out[rescued] = plain[0].numpy()[rescued], plain[1].numpy()[rescued]
+    return d2_out, idx_out, len(rescued)
+
+
+@pytest.mark.parametrize("case", [name for name, *_ in exp_knn.hazard_sets(0, scale=0.05)])
+def test_grid_search_stop_rule_gives_the_plain_version(case):
+    """The grid search, simulated over the plain cell index, on the hazard
+    sets: bit for bit with the plain version (a query it hands to the rescue
+    pass takes the plain row)."""
+    name, src, dst, k, excl = next(s for s in exp_knn.hazard_sets(0, scale=0.05) if s[0] == case)
+    d2, idx, rescued = _grid_search(src, dst, k, excl)
+    want = kneighbors_cuda.knn_ref(torch.from_numpy(src), torch.from_numpy(dst), k, excl)
+    print(f"{case}: {len(src)} queries, {len(dst)} points, k = {k}, rescued {rescued}")
+    assert np.array_equal(_bits(d2), _bits(want[0].numpy()))
+    assert np.array_equal(idx, want[1].numpy())
 
 
 @pytest.mark.parametrize("eps", [0.3, 0.8])
@@ -139,7 +283,7 @@ def test_voxel_edges_plain_equals_a_numpy_pair_test(eps):
 # --- cleanup ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("seed,k,std", [(0, 20, 2.0), (1, 10, 1.5), (2, 5, 1.0)])
+@pytest.mark.parametrize("seed,k,std", [(0, 20, 2.0), (1, 10, 1.5), (2, 5, 1.0), (3, 50, 2.0)])
 def test_sor_matches_jax(seed, k, std):
     xyz = _cloud(seed)
     dj = jclean._knn_mean_dists(xyz, k)
@@ -187,6 +331,7 @@ def test_euclidean_clusters_chained_voxels_and_empty_input():
     {"sor_neighbors": 20, "sor_std": 2.0, "cluster_eps": 0.5, "cluster_min_points": 10},
     {"min_intensity": 10.0, "sor_neighbors": 8, "sor_std": 1.0, "cluster_eps": 0.7,
      "cluster_min_points": 5},
+    {"sor_neighbors": 40, "sor_std": 2.0, "cluster_eps": 0.5, "cluster_min_points": 10},
 ])
 def test_denoise_slam_map_matches_jax(kw):
     xyz = _cloud(11)

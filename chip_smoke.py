@@ -7,10 +7,12 @@ NVIDIA GPU — the quickest proof that the port still builds and runs there.
 
 Phases, each of which fails the script (non-zero exit) if it fails:
   1. the card's name and power limit (nvidia-smi); the two sim feeds start
-     generating in two worker processes (they take ~1-2 minutes of host
-     time and are cached under build/), the recording of phase 9 after
-     them in one of the two (at nice 10), and the KITTI sequence of phase 8
-     in its own worker processes;
+     generating in two worker processes (tens of seconds of host time,
+     cached under build/; ``sim/world.py`` casts each time group of rays
+     only against the rectangles it can reach, bit for bit the dense
+     cast's), the recording of phase 9 after them in one of the two (at
+     nice 10), and the KITTI sequence of phase 8 in its own worker
+     processes;
   2. build every CUDA kernel of the package from ``fastliosam_tpu_torch/csrc``
      (one nvcc per source, all started together) into ``build/kernels/``;
   3. kernel phase: the timing floor first (an empty kernel, ``csrc/empty.cu``,
@@ -171,7 +173,24 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      keyframes on the corridor's centreline, two roads 40 m off and a
      crossing road (every keyframe on the centreline, the route within 2%
      of the distance travelled); a stub TorchScript detector head loaded
-     on the card, ``decode_yolo`` / ``nms`` there equal to the CPU's.
+     on the card, ``decode_yolo`` / ``nms`` there equal to the CPU's;
+ 13. measurement phase, run right after the first part of phase 3 while
+     the feed and KITTI workers still run (its host times read high), in
+     a spawned process of its own (a ``torch.profiler`` session leaves the
+     launches of the process that ran it slower): the odometry step's
+     per-stage profiling scripts at their full widths, each through its
+     ``main(argv)``: ``scripts/profile_step2.py`` (9
+     stages x 24 dependent iterations at 32,768 points, 8192 downsampled,
+     a 2^19-slot map, merged3), ``profile_step.py`` (8 components x 20
+     calls) and ``profile_insert.py`` (12 sub-stages x 30 calls), each
+     stage's host ms, device ms, device operations and kernels an
+     iteration; then ``bench_pgo_crossover.py`` over 128-4096 keyframes
+     (the engines' 128 and 256 and the JAX script's 512-4096), dense and
+     PCG, one timed solve each. Gates: every stage's outputs finite; the
+     association stages launch ``merged_moments``, the insert stages
+     ``insert_claim``, the gather stages ``gather_rows`` (``launches_by_path``
+     ``measure_<script>``); at every size both solvers' costs finite and
+     not above the starting cost (their relative gap printed), no error.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours and the row gather (the loop closure's plane refresh) on the
@@ -183,11 +202,16 @@ the NN on the merged2 run; the association, the insert, the row gather
 and the NN on the bag run of phase 9; the association and the insert on
 the batched rollout of phase 10, the cached query, the row gather and the
 insert on its cached-mode batch; the k-NN and the neighbour-voxel
-kernel on the postprocess path of phase 12). Phases 4-6 and 9 report the
-insert's, the association's and the row gather's launches per scan, and
-device operations per scan over a window traced with ``torch.profiler``
-(the last 50 scans of the replay in 4 and 5, the last 25 of the GPS
-run in 6, the whole replay in 9; ``engine.finish()`` included). With
+kernel on the postprocess path of phase 12; the association, the insert
+and the row gather on the stages of phase 13 that run them). Phases 4-6
+and 9 report the insert's, the association's and the row gather's
+launches per scan, and device operations per scan over a window traced
+with ``torch.profiler`` (the last 15 scans of the replay in 4 and 5, the
+last 10 of the GPS run in 6, the last 30 of the replay in 9;
+``engine.finish()`` included). Every phase prints its wall seconds on a
+line ``phase_s {...}``, every wait for a feed (the figure-8 and corridor
+feeds, the KITTI sequence, the bag recording) a line ``wait_s {...}``,
+and the script its total on a line ``total_s``. With
 ``--profile-scans N`` an extra per-scan run, after every phase, traces its last N scans with
 ``torch.profiler``; it does not touch the launch counts. The line before
 the last is a JSON object describing every kernel (with the timing
@@ -198,9 +222,9 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
-import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -212,14 +236,19 @@ ROOT = Path(__file__).resolve().parent
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores (SXM data sheet)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 KITTI_SCANS = 1160  # the bench's circuit long run (bench.py: LONGRUN_SCANS)
+# traced windows (device operations per scan; tracing slows the host ~5x
+# while it runs): the last scans of the figure-8 replays (phases 4 and 5),
+# the GPS run's last chunks (phase 6) and the bag replay's last scans (9)
+TRACED_SCANS = 15
+TRACED_GPS_CHUNKS = 2
+TRACED_BAG_SCANS = 30
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit (``utils/timing.py: card_line``)."""
+    from fastliosam_tpu_torch.utils.timing import card_line as line
+
+    return line()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -230,27 +259,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def launch_floor_ms(blocks: int) -> float:
-    """Device time of an empty kernel (``csrc/empty.cu``, ``blocks`` x 256
-    threads), launched through ctypes as every kernel wrapper launches its
-    kernel and timed as the kernels are (:func:`cuda_ms`): the least time a
-    kernel can read there."""
-    import ctypes
+    """Device time of an empty kernel (``utils/timing.py: launch_floor_ms``):
+    the least time a kernel can read there."""
+    from fastliosam_tpu_torch.utils.timing import launch_floor_ms as floor_ms
 
-    import torch
-
-    from fastliosam_tpu_torch.ops import build
-
-    fn = build.load("empty").empty_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        err = fn(blocks, 256, stream)
-        if err != 0:
-            raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
-
-    return cuda_ms(launch, 10)
+    return floor_ms(blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -1254,8 +1267,8 @@ def per_scan_phase(dev, feed):
     }
     result["launches_per_scan"] = _per_scan(launches, n_scans)
     poses = np.stack(engine.realtime_traj)
-    window = min(50, n_scans)
-    # the replay; its last 50 scans are traced (tracing changes no result)
+    window = min(TRACED_SCANS, n_scans)
+    # the replay; its last scans are traced (tracing changes no result)
     replay = run_engine(engine, feed, dev, n_scans, profile_from=n_scans - window)
     result["replay_bit_identical"] = _replay(engine, first)
     result["device_ops_per_scan"] = _window_ops(replay)
@@ -1310,9 +1323,9 @@ def chunked_phase(dev, feed, chunk: int = 5):
     }
     result["launches_per_scan"] = _per_scan(launches, run["scans"])
     poses = np.stack(engine.realtime_traj)
-    # the replay; its last 10 chunks are traced (tracing changes no result)
+    # the replay; its last chunks are traced (tracing changes no result)
     replay = run_chunks(engine, feed, dev, chunk, deferred=True,
-                        profile_from=max(0, run["chunks"] - 10))
+                        profile_from=max(0, run["chunks"] - TRACED_SCANS // chunk))
     result["replay_bit_identical"] = _replay(engine, first)
     result["device_ops_per_scan"] = _window_ops(replay)
     print("  " + json.dumps(result))
@@ -1435,10 +1448,10 @@ def gps_phase(dev, feed, chunk: int = 5):
     engine.pgo_cfg = engine.pgo_cfg._replace(gps_huber_delta=2.0)
     engine.cfg = engine.cfg._replace(use_gps=True, gps_dist_thres=2.0, gps_noise_floor=0.25,
                                      odom_trans_sqrt_info=50.0, odom_rot_sqrt_info=1000.0)
-    # the last 5 chunks are traced
+    # the last chunks are traced
     on, launches = _launch_counts(
         lambda: run_chunks(engine, feed, dev, chunk, deferred=False, fixes=fixes,
-                           profile_from=max(0, n_chunks - 5)))
+                           profile_from=max(0, n_chunks - TRACED_GPS_CHUNKS)))
     poses = np.stack(engine.realtime_traj)
     result = {
         "scans": on["scans"], "chunk": chunk, "fixes": len(fixes),
@@ -1937,6 +1950,33 @@ def bag_feed(n_scans: int = 150, seed: int = 11) -> str:
     return str(out)
 
 
+@contextlib.contextmanager
+def _trace_from_scan(k: int):
+    """``torch.profiler`` from the ``k``-th call of ``SlamEngine.process``
+    (patched on the class inside the block) to the end of the block: the
+    last scans of a ``run_slam`` run, its finish and output included.
+    Yields a dict that holds the profiler and the window's wall seconds
+    once the block ends."""
+    from fastliosam_tpu_torch.runtime import SlamEngine
+
+    trace, calls, process = {}, [0], SlamEngine.process
+
+    def traced(self, *args, **kw):
+        if calls[0] == k:
+            trace["prof"], trace["t0"] = _start_profile()
+        calls[0] += 1
+        return process(self, *args, **kw)
+
+    SlamEngine.process = traced
+    try:
+        yield trace
+    finally:
+        SlamEngine.process = process
+        if "prof" in trace:
+            trace["prof"].__exit__(None, None, None)
+            trace["wall_s"] = time.perf_counter() - trace["t0"]
+
+
 def _cli_run(argv):
     """``run_slam.run(argv)`` (the body of its ``main``) with every
     kernel's launch count set to 0 just before and the host reads counted:
@@ -2029,13 +2069,13 @@ def bag_phase(dev, feed_dir: str) -> dict:
     bag = _cli_result(engine, drive_s, reads, launches, gt_p)
     first = (np.stack(engine.realtime_traj), list(engine.loop_pairs))
     del engine
-    prof, t_prof = _start_profile()
-    engine, _, _, _ = _cli_run(argv)
-    torch.cuda.synchronize()
-    prof.__exit__(None, None, None)
+    window = min(TRACED_BAG_SCANS, bag["scans"])
+    with _trace_from_scan(bag["scans"] - window) as trace:
+        engine, _, _, _ = _cli_run(argv)
+        torch.cuda.synchronize()
     bag["replay_bit_identical"] = _replay(engine, first)
     bag["device_ops_per_scan"] = profile_summary(
-        prof, time.perf_counter() - t_prof, bag["scans"], top=6)["device_ops_per_scan"]
+        trace["prof"], trace["wall_s"], window, top=6)["device_ops_per_scan"]
     del engine
     print("  bag: " + json.dumps(bag))
     _fail("bag phase, bag", {
@@ -2782,13 +2822,13 @@ PP_GATES = {"ground_deg": 2.0, "georef_m": 2.0, "icp_deg": 0.5, "icp_m": 0.5,
             "icp_scale": 1e-2, "route": 0.02}
 
 
-def event_ms(fn, reps: int = 1) -> float:
+def event_ms(fn, reps: int = 1, warm=None) -> float:
     """Mean device time of ``reps`` calls of a slow ``fn`` (tens of ms and
     more, where the host's enqueue time does not matter) between two CUDA
-    events, after one call that warms it up."""
+    events, after one call of ``warm`` (default ``fn``) that warms it up."""
     import torch
 
-    fn()
+    (warm or fn)()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -2855,17 +2895,15 @@ def check_knn_shape(src, dst, k: int, exclude_self: bool, reps: int,
         raise AssertionError(f"knn {n}x{m} k={k}: kernel and plain version differ "
                              f"({int((k_idx != r_idx).sum())} indices)")
 
-    def yardstick(rows_of=n):  # unused by the port
-        rows = max(1, (1 << 26) // m)
-        for s in range(0, rows_of, rows):
-            e = min(s + rows, rows_of)
-            d = torch.cdist(src[s:e], dst, compute_mode="donot_use_mm_for_euclid_dist")
-            if exclude_self:
-                r = torch.arange(s, e, device=src.device)
-                d[r - s, r] = float("inf")
-            torch.topk(d, k, dim=1, largest=False)
+    from fastliosam_tpu_torch.scripts.exp_knn import library_block_rows, library_knn
 
-    library_ms = event_ms(yardstick) if library else None
+    def yardstick(rows_of=n):  # unused by the port
+        library_knn(src[:rows_of], dst, k, exclude_self)
+
+    # one block of rows warms the yardstick: every block is the same call
+    block_rows = library_block_rows(m)
+    library_ms = (event_ms(yardstick, warm=lambda: yardstick(min(n, block_rows)))
+                  if library else None)
     nbytes = (n + (0 if exclude_self else m)) * 24 + n * k * 16
     rec = {"shape": [n, m, k], "exclude_self": exclude_self, "max_abs_err": 0.0,
            "dispatch": "grid" if grid else "brute",
@@ -2878,7 +2916,8 @@ def check_knn_shape(src, dst, k: int, exclude_self: bool, reps: int,
     lib = "not timed" if library_ms is None else f"{library_ms:.4f} ms"
     if library_rows and not library:
         rec["library_rows"] = library_rows
-        rec["library_ms_rows"] = event_ms(lambda: yardstick(library_rows))
+        rec["library_ms_rows"] = event_ms(lambda: yardstick(library_rows),
+                                          warm=lambda: yardstick(min(library_rows, block_rows)))
         lib = f"{rec['library_ms_rows']:.4f} ms on {library_rows} of the {n} query rows"
     print(f"  knn {n}x{m} k={k}{' (self excluded)' if exclude_self else ''}, {rec['dispatch']}: "
           f"bit for bit; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cdist+topk "
@@ -3169,24 +3208,135 @@ def _gt_length(corridor, stamps) -> float:
     return float(np.linalg.norm(np.diff(p, axis=0), axis=1).sum())
 
 
+# ---------------------------------------------------------------------------
+# measurement phase: the odometry step's per-stage profiling scripts and the
+# pose-graph solve's dense-against-PCG crossover, through their main(argv)
+# ---------------------------------------------------------------------------
+MEASURE_SCRIPTS = ("profile_step2", "profile_step", "profile_insert")
+# the crossover's sizes: the JAX script's 512-4096 and the engines' own graph
+# capacities (128 in the figure-8 engine, 256 in the corridor's; bench.py:391,651)
+MEASURE_SIZES = (128, 256, 512, 1024, 2048, 4096)
+MEASURE_REPS = 1  # timed solves a size and mode (the phase's time: < 60 s)
+# the stages whose path runs each kernel: the association, the insert, the gather
+MEASURE_KERNEL_STAGES = {
+    "merged_moments": {"profile_step2": ("step", "iekf", "query", "probe"),
+                       "profile_step": ("step", "query_merged", "iekf"),
+                       "profile_insert": ("query", "find_slots")},
+    "insert_claim": {"profile_step2": ("step", "insert"), "profile_step": ("step", "insert"),
+                     "profile_insert": ("insert",)},
+    "gather_rows": {"profile_insert": ("gather", "gather_int")},
+}
+
+
+def measurement_phase(dev, out_dir: Path) -> dict:
+    """``profile_step2``, ``profile_step`` and ``profile_insert`` at their
+    full widths and ``bench_pgo_crossover`` over ``MEASURE_SIZES``, each
+    through its ``main(argv)`` with every kernel's launch count set to 0
+    just before and read just after (``launches_by_path`` keys
+    ``measure_<script>``). Gates: every stage's outputs finite; the
+    association stages launch ``merged_moments``, the insert stages
+    ``insert_claim`` and the gather stages ``gather_rows``; at every size
+    both solvers' costs finite and not above the starting cost, no row
+    with an error."""
+    import torch
+
+    from fastliosam_tpu_torch.scripts import (
+        bench_pgo_crossover, profile_insert, profile_step, profile_step2)
+
+    t_phase = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    mods = {"profile_step2": profile_step2, "profile_step": profile_step,
+            "profile_insert": profile_insert}
+    stages, launches = {}, {}
+    for name in MEASURE_SCRIPTS:
+        path = out_dir / f"{name}.json"
+        rc, launches[f"measure_{name}"] = _launch_counts(
+            lambda: mods[name].main(["--out", str(path)]))
+        stages[name] = {r["stage"]: r for r in json.loads(path.read_text())
+                        if r["stage"] != "baseline"}
+        _fail(f"measurement phase, {name}", {
+            "exit 0": rc == 0,
+            "every stage of the script": list(stages[name]) == list(mods[name].STAGES),
+            "every stage's outputs finite": all(r["finite"] for r in stages[name].values()),
+        })
+    checks = {}
+    for kernel, by_script in MEASURE_KERNEL_STAGES.items():
+        for name, names in by_script.items():
+            checks[f"{name} launches {kernel}"] = launches[f"measure_{name}"][kernel] > 0
+            for st in names:
+                checks[f"{name} {st} launches {kernel}"] = (
+                    stages[name][st]["launches"].get(kernel, 0) > 0)
+    _fail("measurement phase, kernels", checks)
+
+    path = out_dir / "bench_pgo_crossover.json"
+    rc, launches["measure_crossover"] = _launch_counts(lambda: bench_pgo_crossover.main(
+        ["--sizes", *map(str, MEASURE_SIZES), "--reps", str(MEASURE_REPS), "--out", str(path)]))
+    rows = json.loads(path.read_text())["rows"]
+    checks = {"exit 0": rc == 0, "every size": [r["keyframes"] for r in rows]
+              == list(MEASURE_SIZES)}
+    for r in rows:
+        K = r["keyframes"]
+        checks[f"K={K}: no error"] = not any(k.endswith("_error") for k in r)
+        for mode in ("dense", "pcg"):
+            cost = r.get(f"{mode}_cost", float("nan"))
+            checks[f"K={K}: {mode} cost finite, not above the start"] = bool(
+                np.isfinite(cost) and cost <= r["start_cost"])
+        print(f"  crossover K={K}: dense {r.get('dense_ms')} ms, pcg {r.get('pcg_ms')} ms, "
+              f"dense/pcg {r.get('dense_over_pcg')}, costs {r.get('dense_cost')} / "
+              f"{r.get('pcg_cost')} (start {r['start_cost']}; relative gap "
+              f"{r.get('cost_gap_rel')}), device ops a solve {r.get('dense_device_ops')} / "
+              f"{r.get('pcg_device_ops')}, dense peak {r.get('dense_peak_gib')} GiB")
+    _fail("measurement phase, crossover", checks)
+    torch.cuda.empty_cache()  # the dense solves' cached blocks (GiBs at 4096)
+    return {"stages": stages, "crossover": rows, "launches": launches,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def measurement_child(out_dir: str) -> None:
+    """Phase 13 in a process of its own (spawned): ``torch.profiler``
+    leaves CUDA launches slower in the process that used it, which would
+    slow every later engine phase of the script. Writes the phase's record
+    to ``out_dir/phase.json``; a failed gate exits non-zero."""
+    import torch
+
+    out = Path(out_dir)
+    rec = measurement_phase(torch.device("cuda", 0), out)
+    (out / "phase.json").write_text(json.dumps(rec, default=str))
+
+
+def run_measurement_phase(timeout_s: float = 600.0) -> dict:
+    """:func:`measurement_child` in a spawned process (the kernels are
+    built: it only loads them); its record, or a failure."""
+    out = ROOT / "build" / "measure"
+    (out / "phase.json").unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=measurement_child, name="measurement", args=(str(out),))
+    proc.start()
+    proc.join(timeout_s)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"measurement phase failed (exit {proc.exitcode})")
+    return json.loads((out / "phase.json").read_text())
+
+
 def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     """Device time by kernel over the traced window, and the device's busy
     share of the window's wall time (the port runs on one stream, so the
     kernels' times add up to the busy time)."""
-    rows = []
-    for ev in prof.key_averages():
-        # device-side rows only (kernels, copies, sets); the CPU op rows
-        # that launched them would count the same time again
-        if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0:
-            rows.append((ev.self_device_time_total, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) * 1e-6
+    from fastliosam_tpu_torch.utils.timing import device_events
+
+    # device-side rows only (kernels, copies, sets); the CPU op rows that
+    # launched them would count the same time again
+    rows = sorted(((ns, c, k) for k, (c, ns) in device_events(prof).items()), reverse=True)
+    busy_s = sum(r[0] for r in rows) * 1e-9
     launches = sum(r[1] for r in rows)
     out = {
         "window_scans": n_scans, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall_s,
         "device_ops_per_scan": launches / n_scans,
-        "top": [{"op": k[:80], "device_ms": us / 1e3, "count": c} for us, c, k in rows[:top]],
+        "top": [{"op": k[:80], "device_ms": ns / 1e6, "count": c} for ns, c, k in rows[:top]],
     }
     print(f"  profile over {n_scans} scans: wall {wall_s:.3f} s, device busy "
           f"{busy_s:.3f} s (idle {out['device_idle_share']:.1%}), "
@@ -3194,6 +3344,16 @@ def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     for r in out["top"]:
         print(f"    {r['device_ms']:9.3f} ms  x{r['count']:6d}  {r['op']}")
     return out
+
+
+def _phase_s(number: int, name: str, seconds: float) -> None:
+    """One line with a phase's wall seconds."""
+    print("phase_s " + json.dumps({"phase": number, "name": name, "s": round(seconds, 1)}))
+
+
+def _wait_s(what: str, since: float) -> None:
+    """One line with the seconds the card waited for a feed."""
+    print("wait_s " + json.dumps({"wait": what, "s": round(time.perf_counter() - since, 1)}))
 
 
 def main(argv=None) -> int:
@@ -3222,20 +3382,21 @@ def main(argv=None) -> int:
     from fastliosam_tpu_torch.ops import KERNEL_MODULES, build
     from fastliosam_tpu_torch.utils import geometry_precision
 
-    # the KITTI sequence (~1000 s of host time) is written by its own
-    # worker processes from the start, while every earlier phase runs
+    # the KITTI sequence is written by its own worker processes from the
+    # start, while every earlier phase runs
     kitti_pool = ThreadPoolExecutor(max_workers=1)
     kitti_job = kitti_pool.submit(kitti_feed)
-    # the feeds take minutes of host time: two worker processes make them
-    # while the kernels build and the kernel phase runs; the bag phase's
-    # recording follows in one of them at nice 10 (as the KITTI generators
-    # run) while the engine phases run, and the pool is shut down once it
-    # is made (more worker processes at once took the 8-core host down)
+    # two worker processes make the figure-8 and corridor feeds while the
+    # kernels build and the kernel and measurement phases run; the bag
+    # phase's recording follows in one of them at nice 10 (as the KITTI
+    # generators run) while the engine phases run, and the pool is shut down
+    # once it is made (more worker processes at once took the 8-core host down)
     pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
     try:
         fig8_job = pool.submit(figure8_feed, args.scans)
         corridor_job = pool.submit(corridor_feed, args.corridor_scans)
         bag_job = pool.submit(bag_feed, args.scans)
+        _phase_s(1, "card and workers", time.perf_counter() - t_start)
 
         t0 = time.perf_counter()
         build.build(build.sources())
@@ -3244,8 +3405,10 @@ def main(argv=None) -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}.cu: {line.strip()}")
+        _phase_s(2, "build", time.perf_counter() - t0)
 
         with geometry_precision():
+            t0 = time.perf_counter()
             print("kernel phase:")
             floor = {f"{b}_blocks": launch_floor_ms(b) for b in (1, 132)}
             print(f"  timing floor: an empty kernel (csrc/empty.cu) timed as the kernels are: "
@@ -3257,14 +3420,21 @@ def main(argv=None) -> int:
             kernels["take_along_axis"], exp_launches, exp_recs = experiment_phase(dev)
             _fail("experiment entry point", {
                 "take_along_axis launched": exp_launches["take_along_axis"] > 0})
+            _phase_s(3, "kernels (no feed)", time.perf_counter() - t0)
+        print("measurement phase (profile_step2, profile_step, profile_insert, "
+              "bench_pgo_crossover, in a process of its own; beside the feed and KITTI "
+              "workers, which share the host's cores: host times there read high):", flush=True)
+        measure = run_measurement_phase()
+        _phase_s(13, "measurement scripts", measure["phase_s"])
         t0 = time.perf_counter()
         fig8 = load_feed(fig8_job.result())
         corridor = load_feed(corridor_job.result())
         print(f"feeds: figure-8 {len(fig8['stamps'])} x {fig8['xyz'].shape[1]} points, "
-              f"corridor {len(corridor['stamps'])} scans, {len(corridor['gps_t'])} fixes "
-              f"({time.perf_counter() - t0:.1f} s more to wait for)")
+              f"corridor {len(corridor['stamps'])} scans, {len(corridor['gps_t'])} fixes")
+        _wait_s("figure-8 and corridor feeds", t0)
 
         with geometry_precision():
+            t0 = time.perf_counter()
             print("kernel phase, row gather, association and insert (on the figure-8 map):")
             fig8_map = figure8_map(dev, fig8)
             kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, *fig8_map[3:])
@@ -3272,38 +3442,55 @@ def main(argv=None) -> int:
             kernels["insert_claim"] = check_insert(dev, fig8, fig8_map)
             kernels["query_cached"] = check_query(dev, fig8, fig8_map)
             del fig8_map
+            _phase_s(3, "kernels (figure-8 map)", time.perf_counter() - t0)
+            t0 = time.perf_counter()
             print("per-scan phase (SlamEngine.process):")
             per_scan, fig8_traj = per_scan_phase(dev, fig8)
+            _phase_s(4, "per-scan", time.perf_counter() - t0)
+            t0 = time.perf_counter()
             print(f"chunked phase (SlamEngine.process_chunk_deferred, chunk {args.chunk}):")
             chunked = chunked_phase(dev, fig8, args.chunk)
+            _phase_s(5, "chunked", time.perf_counter() - t0)
+            t0 = time.perf_counter()
             print(f"GPS phase (corridor, SlamEngine.process_chunk, chunk {args.chunk}):")
             gps, gps_kf = gps_phase(dev, corridor, args.chunk)
+            _phase_s(6, "GPS", time.perf_counter() - t0)
+            t0 = time.perf_counter()
             print("modes phase (cached + point-to-plane per scan; merged2 + multi-start chunked):")
             modes = modes_phase(dev, fig8, args.chunk)
+            _phase_s(7, "modes", time.perf_counter() - t0)
             t0 = time.perf_counter()
             kitti_root, kitti_s = kitti_job.result()
             kitti_pool.shutdown()
-            print(f"KITTI phase ({KITTI_SCANS} scans generated in {kitti_s:.1f} s, "
-                  f"{time.perf_counter() - t0:.1f} s more to wait for):")
+            _wait_s("KITTI sequence", t0)
+            t0 = time.perf_counter()
+            print(f"KITTI phase ({KITTI_SCANS} scans generated in {kitti_s:.1f} s):")
             kitti = kitti_phase(dev, kitti_root, args.chunk)
             kitti["feed_s"] = kitti_s
+            _phase_s(8, "KITTI", time.perf_counter() - t0)
             t0 = time.perf_counter()
             bag_dir = bag_job.result()
+            _wait_s("bag recording", t0)
+            t0 = time.perf_counter()
             print(f"bag phase (run_slam --dataset bag|mulran|newer-college, {OS1_64[0]} x "
-                  f"{OS1_64[1]} rays; {time.perf_counter() - t0:.1f} s more to wait for the "
-                  f"recording):")
+                  f"{OS1_64[1]} rays):")
             bag = bag_phase(dev, bag_dir)
+            _phase_s(9, "bag", time.perf_counter() - t0)
+            t0 = time.perf_counter()
             print(f"batched phase (eval/batch_eval.py: batched_rollout, {BATCH_LANES} lanes x "
                   f"{BATCH_SCANS} figure-8 scans):")
             batched = batched_phase(dev, fig8, floor)
+            _phase_s(10, "batched", time.perf_counter() - t0)
             print(f"mesh phase (SlamEngine(mesh=make_mesh({MESH_RANKS})), gloo ranks on one "
                   f"card, process_chunk, chunk {args.chunk}; then NCCL at world size 1):")
             mesh = mesh_phase(dev, fig8_job.result(), args.chunk)
+            _phase_s(11, "mesh", mesh["phase_s"])
             print("postprocess phase (fastliosam_tpu_torch.postprocess on the KITTI export, the "
                   "GPS keyframes and the figure-8 trajectory):")
             pp = postprocess_phase(dev, ROOT / "build" / "kitti_export" / "00_map.pcd",
                                    corridor, gps_kf, fig8, fig8_traj)
             kernels.update(pp["kernels"])
+            _phase_s(12, "postprocess", pp["result"]["phase_s"])
             if args.profile_scans > 0:
                 print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
                 per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
@@ -3321,7 +3508,7 @@ def main(argv=None) -> int:
              "mesh": {k: sum(r[k] for r in mesh["launches_per_rank"])
                       for k in mesh["launches_per_rank"][0]},
              "mesh_nccl": mesh["nccl"]["launches"],
-             "postprocess": pp["result"]["launches"]}
+             "postprocess": pp["result"]["launches"], **measure["launches"]}
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
@@ -3343,14 +3530,14 @@ def main(argv=None) -> int:
             rec["at_mesh_rank_shape"]["launches_per_rank"] = [
                 r[name] for r in mesh["launches_per_rank"]]
         line["kernels"].append(rec)
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"total_s {time.perf_counter() - t_start:.1f}")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {"card": card_line(), "kernels": line["kernels"], "gather_cases": gather_cases,
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
              "modes": modes, "kitti": kitti, "bag": bag, "batched": batched, "mesh": mesh,
-             "postprocess": pp, "timing_floor_ms": floor,
+             "postprocess": pp, "measurement": measure, "timing_floor_ms": floor,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))
     print(json.dumps(line))

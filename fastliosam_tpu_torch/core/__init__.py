@@ -1,1 +1,1 @@
-from . import so3, se3, eigh3, pointcloud  # noqa: F401
+from . import so3, se3, eigh3, pointcloud, geodesy  # noqa: F401

@@ -1,7 +1,7 @@
 """The k-NN kernel's two routes (``csrc/knn.cu``, ``ops/kneighbors_cuda.py``)
 on hazard inputs, their crossover, and the grid's target occupancy.
 
-    python -m fastliosam_tpu_torch.scripts.exp_knn [--device cuda] [--out FILE]
+    python -m fastliosam_tpu_torch.scripts.exp_knn [--device cuda] [--out FILE] [--library-map PCD]
 
 1. Hazards (:func:`hazard_sets`): points on cell faces and a hair off them,
    exact ties across cells, far outliers, one dense cell of duplicates, the
@@ -29,12 +29,17 @@ on hazard inputs, their crossover, and the grid's target occupancy.
 
 On the CPU (``--device cpu``) only the hazards run, through the plain
 version; nothing is timed. Prints one JSON line a record.
+
+With ``--library-map PCD`` (card only) the script does nothing else: it
+times ``knn``'s one-call PyTorch yardstick, ``cdist`` + ``topk`` (k = 20,
+self excluded: the SOR's call), over every query row of that map against
+all of its points, in row blocks of 512 MiB of distances
+(:func:`run_library_map`).
 """
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
@@ -42,7 +47,7 @@ import torch
 
 from ..ops import cell_grid, kneighbors_cuda
 from ..utils.device import resolve_device
-from ..utils.timing import device_ms
+from ..utils.timing import card_line, device_ms
 
 CROSSOVER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 OCCUPANCY_TARGETS = (0.25, 0.5, 1.0, 2.0, 4.0)
@@ -271,19 +276,72 @@ def run_profile(dev, reps: int = 3, top: int = 12, print_fn=print) -> list[dict]
     return out
 
 
+def library_block_rows(m: int) -> int:
+    """Query rows a ``cdist`` block of :func:`library_knn` holds: 2^26
+    distances (512 MiB of float64) against ``m`` destinations."""
+    return max(1, (1 << 26) // m)
+
+
+def library_knn(src, dst, k: int, exclude_self: bool):
+    """The one-call PyTorch yardstick of ``knn`` (the port never calls it):
+    ``cdist`` (no matrix-product expansion) and ``topk`` over blocks of
+    :func:`library_block_rows` query rows. Returns the last block's
+    ``(d2, idx)``."""
+    rows = library_block_rows(dst.shape[0])
+    out = None
+    for s in range(0, src.shape[0], rows):
+        e = min(s + rows, src.shape[0])
+        d = torch.cdist(src[s:e], dst, compute_mode="donot_use_mm_for_euclid_dist")
+        if exclude_self:
+            r = torch.arange(s, e, device=src.device)
+            d[r - s, r] = float("inf")
+        out = torch.topk(d, k, dim=1, largest=False)
+    return out
+
+
+def run_library_map(dev, pcd: str, k: int = 20, print_fn=print) -> dict:
+    """The yardstick over every query row of a whole map (the SOR's call:
+    all points against all, self excluded): one block to warm it, then one
+    timed pass between two CUDA events."""
+    from ..io.pcd import read_pcd, xyz_of
+
+    xyz = torch.from_numpy(np.ascontiguousarray(xyz_of(read_pcd(pcd)), np.float64)).to(dev)
+    m = xyz.shape[0]
+    rows = library_block_rows(m)
+    library_knn(xyz[:rows], xyz, k, True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    library_knn(xyz, xyz, k, True)
+    end.record()
+    torch.cuda.synchronize()
+    rec = {"library_map": pcd, "shape": [m, m, k], "exclude_self": True,
+           "block_rows": rows, "blocks": -(-m // rows), "library_ms": start.elapsed_time(end)}
+    print_fn(json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", help="also write every record as JSON here")
+    ap.add_argument("--library-map", metavar="PCD",
+                    help="only time cdist + topk (k = 20, self excluded) over every row of "
+                         "this map (card only)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     records = {}
     if dev.type == "cuda":  # the card's name and power limit
-        records["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        records["card"] = card_line()
         print(records["card"])
+    if args.library_map:
+        if dev.type != "cuda":
+            ap.error("--library-map times the card: it needs CUDA")
+        records["library_map"] = run_library_map(dev, args.library_map)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(records, f, indent=1)
+        return 0
     records["hazards"] = run_hazards(dev)
     if dev.type == "cuda":
         records["crossover"] = run_crossover(dev, args.reps)

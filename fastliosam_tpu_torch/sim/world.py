@@ -224,30 +224,76 @@ class PlaneWorld:
         )
 
     def raycast(self, origins, dirs, max_range=100.0):
-        """Batch ray cast. origins/dirs (N,3) -> (points (N,3), hit (N,))."""
+        """Batch ray cast. origins/dirs (N,3) -> (points (N,3), hit (N,)).
+
+        Rays that share one origin (a time group of :func:`simulate_sequence`)
+        are cast only against the rectangles that some ray of the group can
+        reach (:meth:`_reachable`); every other rectangle gives every ray
+        ``t = inf``, so the nearest hit, and each output bit, is that of the
+        dense cast over all rectangles."""
         n = self.normals  # (K,3)
         c = self.centers
-        # t per (ray, plane): n·(o + t d - c) = 0
-        denom = dirs @ n.T  # (N,K)
-        num = np.einsum("kj,nkj->nk", n, c[None] - origins[:, None])
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t = num / denom
-        t = np.where(np.abs(denom) > 1e-9, t, np.inf)
-        t = np.where(t > 1e-6, t, np.inf)
-        t_safe = np.where(np.isfinite(t), t, 0.0)
-        hit_pts = origins[:, None] + t_safe[..., None] * dirs[:, None]  # (N,K,3)
-        rel = hit_pts - c[None]
-        ulen2 = np.sum(self.us * self.us, axis=-1)  # (K,)
-        vlen2 = np.sum(self.vs * self.vs, axis=-1)
-        uu = np.einsum("nkj,kj->nk", rel, self.us) / ulen2
-        vv = np.einsum("nkj,kj->nk", rel, self.vs) / vlen2
-        inside = (np.abs(uu) <= 1.0) & (np.abs(vv) <= 1.0)
-        t = np.where(inside, t, np.inf)
-        tmin = t.min(axis=1)
-        kmin = t.argmin(axis=1)
+        us, vs = self.us, self.vs
+        keep = self._reachable(origins, dirs)
+        if keep is not None:
+            n, c, us, vs = n[keep], c[keep], us[keep], vs[keep]
+        if len(c) == 0:
+            tmin = np.full(len(dirs), np.inf)
+        else:
+            # t per (ray, plane): n·(o + t d - c) = 0
+            denom = dirs @ n.T  # (N,K)
+            num = np.einsum("kj,nkj->nk", n, c[None] - origins[:, None])
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t = num / denom
+            t = np.where(np.abs(denom) > 1e-9, t, np.inf)
+            t = np.where(t > 1e-6, t, np.inf)
+            t_safe = np.where(np.isfinite(t), t, 0.0)
+            hit_pts = origins[:, None] + t_safe[..., None] * dirs[:, None]  # (N,K,3)
+            rel = hit_pts - c[None]
+            ulen2 = np.sum(us * us, axis=-1)  # (K,)
+            vlen2 = np.sum(vs * vs, axis=-1)
+            uu = np.einsum("nkj,kj->nk", rel, us) / ulen2
+            vv = np.einsum("nkj,kj->nk", rel, vs) / vlen2
+            inside = (np.abs(uu) <= 1.0) & (np.abs(vv) <= 1.0)
+            t = np.where(inside, t, np.inf)
+            tmin = t.min(axis=1)
         hit = np.isfinite(tmin) & (tmin < max_range)
         pts = origins + np.where(hit, tmin, 0.0)[:, None] * dirs
         return pts, hit
+
+    def _reachable(self, origins, dirs, margin=1e-3):
+        """Indices of the rectangles that a ray of ``dirs`` from the shared
+        origin may hit, or None (every rectangle) when the origins differ.
+
+        A rectangle with perpendicular half-axes u, v lies in the ball of
+        radius |u| + |v| around its centre c, so a ray from o that hits it
+        leaves the direction w = c - o by at most asin((|u| + |v|) / |w|).
+        The group's directions lie within an angle θ of their mean a, so a
+        rectangle whose w leaves a by more than θ + that angle (+ ``margin``
+        radians, far above the rounding of the dense test) is hit by no ray.
+        Rectangles around the origin and skewed ones are always kept."""
+        o = origins[0]
+        if not np.array_equal(origins, np.broadcast_to(o, origins.shape)):
+            return None
+        s = dirs.sum(axis=0)
+        s_norm = np.linalg.norm(s)
+        if s_norm == 0.0:
+            return None
+        a = s / s_norm
+        cos_dirs = (dirs @ a) / np.linalg.norm(dirs, axis=-1)
+        theta = np.arccos(np.clip(cos_dirs.min(), -1.0, 1.0))
+        w = self.centers - o
+        dist = np.linalg.norm(w, axis=-1)
+        ul = np.linalg.norm(self.us, axis=-1)
+        vl = np.linalg.norm(self.vs, axis=-1)
+        r = ul + vl
+        perp = np.abs(np.sum(self.us * self.vs, axis=-1)) <= 1e-9 * ul * vl
+        far = dist > r * 1.001 + 1e-6
+        safe = np.maximum(dist, 1e-300)
+        off_axis = np.arccos(np.clip((w @ a) / safe, -1.0, 1.0))
+        half = np.arcsin(np.clip(r / safe, 0.0, 1.0))
+        unreachable = perp & far & (off_axis > theta + half + margin)
+        return np.flatnonzero(~unreachable)
 
 
 @dataclass

@@ -1233,3 +1233,106 @@ def test_postprocess_cleanup_on_the_card_equals_the_cpu(cuda_device):
                               denoise_slam_map(xyz, device="cpu", **kw))
     assert np.array_equal(euclidean_clusters(xyz, 0.7, 5), euclidean_clusters(xyz, 0.7, 5,
                                                                                device="cpu"))
+
+
+# the measurement scripts (profile_step2, profile_step, profile_insert,
+# bench_pgo_crossover) at small sizes: their stages launch the path's kernels
+PROFILE_SMALL = ["--points", "4096", "--ds-points", "1024", "--map-log2", "14", "--reps", "2"]
+PROFILE_KERNELS = {  # script: {stage: kernels it must launch}
+    "profile_step2": {"step": ("merged_moments", "insert_claim"), "iekf": ("merged_moments",),
+                      "query": ("merged_moments",), "probe": ("merged_moments",),
+                      "insert": ("insert_claim",)},
+    "profile_step": {"step": ("merged_moments", "insert_claim"),
+                     "query_merged": ("merged_moments",), "iekf": ("merged_moments",),
+                     "insert": ("insert_claim", "gather_rows"), "query_cached": ("query_cached",)},
+    "profile_insert": {"insert": ("insert_claim",), "query": ("merged_moments",),
+                       "find_slots": ("merged_moments",), "gather": ("gather_rows",),
+                       "gather_int": ("gather_rows",)},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("script", sorted(PROFILE_KERNELS))
+def test_profile_script_stages_launch_their_kernels(cuda_device, script, tmp_path):
+    import importlib
+    import json
+
+    from fastliosam_tpu_torch.ops import KERNEL_MODULES
+
+    mod = importlib.import_module(f"fastliosam_tpu_torch.scripts.{script}")
+    out = tmp_path / "stages.json"
+    for m in KERNEL_MODULES:
+        m.reset_launches()
+    assert mod.main(PROFILE_SMALL + ["--out", str(out)]) == 0
+    total = {m.KERNEL["name"]: m.launches for m in KERNEL_MODULES}
+    recs = {r["stage"]: r for r in json.loads(out.read_text())}
+    assert recs["baseline"]["device_ms"] > 0
+    assert set(recs) == {"baseline", *mod.STAGES}
+    for name in mod.STAGES:
+        r = recs[name]
+        assert r["finite"] and r["device"] == "cuda" and r["card"]
+        assert r["device_ms"] > 0 and r["device_ops"] > 0 and r["host_ms"] > 0
+    for name, kernels in PROFILE_KERNELS[script].items():
+        for k in kernels:
+            assert recs[name]["launches"].get(k, 0) > 0, (name, k)
+    # the script's own counting leaves a caller's count whole: every stage's
+    # counted run (R iterations) is inside the total
+    for k in {k for ks in PROFILE_KERNELS[script].values() for k in ks}:
+        assert total[k] >= sum(r["launches"].get(k, 0) * r["reps"]
+                               for name, r in recs.items() if name != "baseline"), k
+
+
+@pytest.mark.cuda
+def test_pgo_crossover_runs_both_solvers(cuda_device, tmp_path):
+    import json
+
+    from fastliosam_tpu_torch.scripts import bench_pgo_crossover
+
+    out = tmp_path / "crossover.json"
+    assert bench_pgo_crossover.main(["--sizes", "64", "--reps", "1", "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert rec["device"] == "cuda" and rec["card"]
+    (row,) = rec["rows"]
+    for mode in ("dense", "pcg"):
+        assert np.isfinite(row[f"{mode}_cost"]) and row[f"{mode}_cost"] <= row["start_cost"]
+        assert row[f"{mode}_ms"] > 0 and row[f"{mode}_device_ops"] > 0
+        assert row[f"{mode}_peak_gib"] > 0
+    # PCG's solve is many more small launches than the dense factorization's
+    assert row["pcg_device_ops"] > row["dense_device_ops"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("script", ["profile_step2", "profile_step", "profile_insert",
+                                    "bench_pgo_crossover"])
+def test_measurement_scripts_need_cuda_unless_told_cpu(cuda_device, script, monkeypatch):
+    import importlib
+
+    mod = importlib.import_module(f"fastliosam_tpu_torch.scripts.{script}")
+    small = ["--sizes", "16", "--reps", "1"] if script == "bench_pgo_crossover" else (
+        ["--points", "1024", "--ds-points", "256", "--map-log2", "12", "--reps", "1"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(small)
+    assert mod.main(small + ["--device", "cpu"]) == 0
+
+
+@pytest.mark.cuda
+def test_device_events_count_what_key_averages_counts(cuda_device):
+    """``utils/timing.device_events`` (the profiler's raw events) gives the
+    device operations and device time that ``key_averages()`` gives."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastliosam_tpu_torch.utils.timing import device_events
+
+    x = torch.rand(4096, 64, device=cuda_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            x = torch.sort(x * 1.0001 + 1e-6, dim=0).values.cumsum(0) / 4096
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    assert sum(c for c, _ in events.values()) == sum(e.count for e in rows) > 40
+    np.testing.assert_allclose(sum(ns for _, ns in events.values()) / 1e3,
+                               sum(e.self_device_time_total for e in rows), rtol=1e-3)

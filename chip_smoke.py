@@ -190,7 +190,35 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      association stages launch ``merged_moments``, the insert stages
      ``insert_claim``, the gather stages ``gather_rows`` (``launches_by_path``
      ``measure_<script>``); at every size both solvers' costs finite and
-     not above the starting cost (their relative gap printed), no error.
+     not above the starting cost (their relative gap printed), no error;
+ 14. pipeline phase, after phase 12 in this process while the machine is
+     quiet (its scans/s are host-clock readings): the scripts that take
+     their feeds and engines from ``eval/feeds.py`` (the port of
+     ``bench.py``'s feed functions), on its feeds, made in a feed worker at
+     nice 10 beside the earlier phases (the figure-8 feed with the bench's 10
+     Hz GPS draws, 150 scans, and the 43-scan odometry feed; phases 4-12
+     keep ``figure8_feed``, whose draws their accuracy references rest on):
+     ``scripts/profile_pipeline.py`` (``full``, ``full_deferred``,
+     ``no_verify``, ``no_kf``, a warm and one timed run each: scans/s and
+     the attribution of the time to verification and solves, keyframe
+     commits and chunked odometry), both probes of
+     ``exp_gps_noinit_probe.py`` (the keyframe hops' drift of one deferred
+     run from p0 + 2e-4 m; the identity-start rollout, twice),
+     ``roofline_odom.py`` at 32,768 / 8192 points (30 steps; its flops and
+     bytes against the H100's rates), ``exp_gather.py``'s XLA experiments
+     and ``microbench_gather.py`` at C = 2^19, N = 8192. Gates: ``full``
+     and ``full_deferred`` each close a loop and solve and launch the NN,
+     the row gather, the association and the insert; ``no_verify`` closes
+     no loop; ``no_kf`` keeps at most one keyframe and launches the
+     association and the insert but not the NN; every variant's timed run
+     equals its warm run bit for bit (trajectory, keyframes, loops,
+     solves); the no-init errors finite, repeated bit for bit, their RMS at
+     most the JAX package's CPU reading (``NOINIT_JAX_ATE_M``, the largest
+     over its identity start and 29 starts moved by 1-100 µm) + 1 cm; the
+     roofline's counts finite and positive; ``exp_c`` exact, the ``exp_d``
+     window equal to its four gathers; every gather equal to the same
+     function's result on the CPU bit for bit. Each line is printed beside
+     the card's name and power limit.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours and the row gather (the loop closure's plane refresh) on the
@@ -203,7 +231,8 @@ and the NN on the bag run of phase 9; the association and the insert on
 the batched rollout of phase 10, the cached query, the row gather and the
 insert on its cached-mode batch; the k-NN and the neighbour-voxel
 kernel on the postprocess path of phase 12; the association, the insert
-and the row gather on the stages of phase 13 that run them). Phases 4-6
+and the row gather on the stages of phase 13 that run them; the NN, the
+row gather, the association and the insert on phase 14's full variants). Phases 4-6
 and 9 report the insert's, the association's and the row gather's
 launches per scan, and device operations per scan over a window traced
 with ``torch.profiler`` (the last 15 scans of the replay in 4 and 5, the
@@ -401,21 +430,6 @@ def check_nn_rank_shape(dev, seed: int, n: int = 4096, m: int = 16384):
     return rec
 
 
-def _gather_bytes(idx_np, d, c, valid=None, idx_itemsize=None):
-    """HBM bytes a row gather must move: the distinct 32-byte sectors of the
-    rows it reads (after the wrap/clamp rule), the index (and mask) read and
-    the output write."""
-    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
-
-    i = idx_np.astype(np.int64)
-    i = np.clip(np.where(i < 0, i + c, i), 0, c - 1)
-    if valid is not None:
-        i = i[valid]
-    n = len(idx_np)
-    return (sector_bytes(i, d) + n * (idx_itemsize or idx_np.itemsize)
-            + (n if valid is not None else 0) + n * d * 4)
-
-
 def check_gather(dev, seed: int, plane_sets, surfel_cfg):
     """The row gather against its plain version, bit for bit, at the shapes
     the main path gives it: the loop closure's plane refresh
@@ -479,8 +493,8 @@ def check_gather(dev, seed: int, plane_sets, surfel_cfg):
             library_ms = device_ms(lambda t, i: torch.index_select(t, 0, i), clamped)
         table, idx, val = sets[0]
         c, d = table.shape[0], (table.shape[1] if table.dim() == 2 else 1)
-        nbytes = float(np.mean([_gather_bytes(i.cpu().numpy(), d, c,
-                                              None if v is None else v.cpu().numpy())
+        nbytes = float(np.mean([gather_cuda.hbm_bytes(i.cpu().numpy(), d, c,
+                                                      None if v is None else v.cpu().numpy())
                                 for _, i, v in sets]))
         rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -574,10 +588,8 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     ``at_merged``."""
     import torch
 
-    from fastliosam_tpu_torch.core import voxel
     from fastliosam_tpu_torch.map import voxel_hash as vh
     from fastliosam_tpu_torch.ops import assoc_cuda
-    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
     from fastliosam_tpu_torch.utils.timing import device_ms
 
     m, cfg, traj, *_ = fig8
@@ -598,15 +610,7 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
             coords0, pools = pools_fn(xyz, cfg.voxel_size)
             mask = torch.ones(8192, dtype=torch.bool, device=dev)
             sets.append((pools, coords0, mask))
-            # HBM bytes: the probed fingerprint sectors and the found rows'
-            # sectors (distinct), the coordinates and mask read, the output
-            h0 = voxel.hash_slot(pools, cfg.capacity).to(torch.int64).cpu().numpy().reshape(-1)
-            want = voxel.fingerprint(pools).cpu().numpy().reshape(-1)
-            cand = (h0[:, None] + np.arange(probes)) & (cfg.capacity - 1)
-            hit = fp_np[cand] == want[:, None]
-            found = cand[hit.any(1), hit[hit.any(1)].argmax(1)]
-            nbytes.append(sector_bytes(cand.reshape(-1), 1) + sector_bytes(found, 10)
-                          + pools.numel() * 4 + coords0.numel() * 4 + 8192 + 8192 * 13 * 4)
+            nbytes.append(assoc_cuda.hbm_bytes(fp_np, pools, coords0, probes))
         found_share = []
         for pools, coords0, mask in sets:
             got = assoc_cuda.merged_moments_cuda(*args, pools, coords0, mask, *tail)
@@ -647,28 +651,6 @@ def _cached_map(m, cfg):
     normal, d, plane_valid = m.normal.clone(), m.d.clone(), m.plane_valid.clone()
     normal[occ], d[occ], plane_valid[occ] = nrm, dd, pv
     return m._replace(normal=normal, d=d, plane_valid=plane_valid)
-
-
-def _query_bytes(fp, cfg, xyz, mask) -> int:
-    """HBM bytes the cached-plane query must move: the distinct fingerprint
-    sectors of the live queries' probes, the sectors of the rows read
-    (normal, d and plane_valid: three arrays; slot 0 for a miss), the xyz
-    and mask read and the 17-byte output rows."""
-    import torch
-
-    from fastliosam_tpu_torch.core import voxel
-    from fastliosam_tpu_torch.ops import query_cuda
-    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
-
-    live = mask.cpu().numpy()
-    coords = voxel.voxel_coords(xyz, cfg.voxel_size)
-    h0 = voxel.hash_slot(coords, cfg.capacity).to(torch.int64).cpu().numpy()[live]
-    cand = (h0[:, None] + np.arange(cfg.query_probes)) & (cfg.capacity - 1)
-    slots, _ = query_cuda.find_slots_ref(fp, coords, mask, cfg.query_probes)
-    rows = np.clip(slots.cpu().numpy(), 0, None)
-    n = len(live)
-    return (sector_bytes(cand.reshape(-1), 1) + sector_bytes(rows, 3) + 2 * sector_bytes(rows, 1)
-            + n * 12 + n + n * 17)
 
 
 def check_query(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
@@ -737,7 +719,8 @@ def check_query(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
         ms = device_ms(query_cuda.query_cached_cuda, sets)
         plain_ms = device_ms(query_cuda.query_cached_ref, sets)
         composed_ms = device_ms(plain_probe_index_select, sets)
-        nbytes = float(np.mean([_query_bytes(a[0], c_, a[4], a[5]) for a in sets]))
+        nbytes = float(np.mean([query_cuda.hbm_bytes(*(a[i] for i in (0, 4, 5, 6, 7)))
+                                for a in sets]))
         recs[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
                       "library_ms": None,
@@ -790,30 +773,6 @@ def _downsampled_world(feed, k, pose, dev, budget: int = 8192):
                                 torch.from_numpy(feed["mask"][k]).to(dev)), 0.5)
     pose = torch.from_numpy(pose).to(dev)
     return (ds.xyz[:budget] @ pose[:3, :3].T + pose[:3, 3]).contiguous(), ds.mask[:budget]
-
-
-def _insert_bytes(fp_np, cfg, xyz, mask, sl, rounds: int) -> int:
-    """HBM bytes the insert must move: the distinct fingerprint sectors of
-    every probe chain walked (to the slot found, or ``rounds`` long where
-    none was), the sectors of the new fingerprint words and coordinate rows
-    and of the old moment words read, the xyz and mask read and the sl,
-    upd and n_dropped writes. ``fp_np``: the fingerprints before."""
-    import torch
-
-    from fastliosam_tpu_torch.core import voxel
-    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
-
-    c = cfg.capacity
-    h0 = voxel.hash_slot(voxel.voxel_coords(xyz, cfg.voxel_size), c).to(torch.int64).cpu().numpy()
-    sl, mask = sl.cpu().numpy(), mask.cpu().numpy()
-    found = sl < c
-    steps = np.where(found, ((sl - h0) & (c - 1)) + 1, np.where(mask, rounds, 0))
-    walked = np.concatenate([(h0[steps > k] + k) & (c - 1) for k in range(int(steps.max()))])
-    slots = np.unique(sl[found])
-    new = slots[fp_np[slots] == 0]  # empty before: a winner wrote it
-    n = len(sl)
-    return (sector_bytes(walked, 1) + sector_bytes(new, 1) + sector_bytes(new, 3)
-            + sector_bytes(slots * 10, 1) + n * (12 + 1) + n * (8 + 40) + 4)
 
 
 def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
@@ -905,7 +864,7 @@ def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     for r in (rounds, 4):
         sls = [insert_cuda.insert_claim_cuda(m.fp, m.coords, m.moments, xyz, mask, vs, r,
                                              maxp)[2] for xyz, mask in sets]
-        nbytes[r] = float(np.mean([_insert_bytes(fp_np, cfg, xyz, mask, sl, r)
+        nbytes[r] = float(np.mean([insert_cuda.hbm_bytes(fp_np, xyz, mask, sl, vs, r)
                                    for (xyz, mask), sl in zip(sets, sls)]))
     bounds = {r: b / H100_BYTES_PER_S * 1e3 for r, b in nbytes.items()}
     bound_ms = bounds[rounds]
@@ -948,35 +907,6 @@ def experiment_phase(dev):
 # ---------------------------------------------------------------------------
 # feeds (made in worker processes while the kernels build)
 # ---------------------------------------------------------------------------
-def _pack(data, traj) -> dict:
-    cap = max(32, max(len(b[0]) for b in data["imu"]))
-
-    def pad(b, i, fill=0.0):
-        a = b[i]
-        return np.pad(a, ((0, cap - len(a)),) + ((0, 0),) * (a.ndim - 1),
-                      constant_values=fill)
-
-    R0, p0 = traj.pose(0.0)
-    feed = {
-        "xyz": np.stack([s[0] for s in data["scans"]]).astype(np.float32),
-        "toff": np.stack([s[1] for s in data["scans"]]).astype(np.float32),
-        "mask": np.stack([s[2] for s in data["scans"]]),
-        "imu_t": np.stack([pad(b, 0, 1e9) for b in data["imu"]]).astype(np.float32),
-        "imu_g": np.stack([pad(b, 1) for b in data["imu"]]).astype(np.float32),
-        "imu_a": np.stack([pad(b, 2) for b in data["imu"]]).astype(np.float32),
-        "imu_m": np.stack([np.arange(cap) < len(b[0]) for b in data["imu"]]),
-        "gt_p": np.stack([g[1] for g in data["gt"]]).astype(np.float32),
-        "stamps": np.asarray(data["stamps"], np.float64),
-        "scan_dt": np.float32(data["scan_dt"]),
-        "R0": R0.astype(np.float32), "p0": p0.astype(np.float32),
-        "v0": traj.velocity(0.0).astype(np.float32),
-    }
-    if data["gps"]:
-        feed["gps_t"] = np.asarray([g[0] for g in data["gps"]], np.float64)
-        feed["gps_xyz"] = np.stack([g[1] for g in data["gps"]]).astype(np.float64)
-    return feed
-
-
 def _cached_feed(name: str, build) -> str:
     """Make the feed once and cache it under build/; returns its path."""
     cache = ROOT / "build" / f"chip_smoke_{name}.npz"
@@ -998,36 +928,34 @@ def figure8_traj():
 def figure8_feed(n_scans: int, seed: int = 11) -> str:
     """The bench's loop-closing feed (``bench.py: build_fig8_sequence``): a
     lemniscate through a 60 m room, 2048 azimuths x 16 rings at 10 Hz, IMU
-    at 200 Hz."""
+    at 200 Hz; GPS drawn at the simulator's default 1 Hz, not the bench's
+    10 Hz (``eval/feeds.py: build_fig8_sequence``, phase 14's feed): the
+    draws decide the IMU noise that follows them, and the accuracy
+    references of phases 4-12 rest on these."""
     def build():
+        from fastliosam_tpu_torch.eval.feeds import pack_sequence
         from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, simulate_sequence
 
         world = PlaneWorld.room(size=60.0, height=10.0, n_boxes=25, seed=seed)
         traj = figure8_traj()
         cfg = SimConfig(scan_rate=10.0, n_azimuth=2048, n_elev=16, max_range=120.0,
                         gyro_noise=0.001, acc_noise=0.01, seed=seed, time_groups=32)
-        return _pack(simulate_sequence(world, traj, cfg, n_scans=n_scans), traj)
+        return pack_sequence(simulate_sequence(world, traj, cfg, n_scans=n_scans), traj)
 
     return _cached_feed(f"fig8_{n_scans}_{seed}", build)
 
 
-def corridor_feed(n_scans: int, seed: int = 3) -> str:
-    """The bench's GPS corridor (``bench.py: build_corridor_sequence``): a
-    400 m corridor whose planes are all ⊥ x beyond its clutter, a straight
-    run at 6 m/s with a strong accelerometer bias, 2048 x 16 rays to 60 m,
-    GPS at 10 Hz with 0.3 m noise."""
+def corridor_feed(n_scans: int) -> str:
+    """The bench's GPS corridor (``eval/feeds.py: build_corridor_sequence``,
+    the port of ``bench.py``'s): a 400 m corridor whose planes are all ⊥ x
+    beyond its clutter, a straight run at 6 m/s with a strong accelerometer
+    bias, 2048 x 16 rays to 60 m, GPS at 10 Hz with 0.3 m noise."""
     def build():
-        from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+        from fastliosam_tpu_torch.eval.feeds import build_corridor_sequence
 
-        world = PlaneWorld.corridor(length=400.0, width=8.0, height=5.0, n_clutter=8,
-                                    clutter_span=15.0, seed=seed)
-        traj = Trajectory.straight(speed=6.0)
-        cfg = SimConfig(scan_rate=10.0, n_azimuth=2048, n_elev=16, max_range=60.0,
-                        gyro_noise=0.001, acc_noise=0.01, acc_bias=(0.08, -0.03, 0.04),
-                        seed=seed, time_groups=32, gps_rate=10.0, gps_noise=0.3)
-        return _pack(simulate_sequence(world, traj, cfg, n_scans=n_scans), traj)
+        return build_corridor_sequence(n_scans)
 
-    return _cached_feed(f"corridor_{n_scans}_{seed}", build)
+    return _cached_feed(f"corridor_{n_scans}_3", build)
 
 
 def load_feed(path: str) -> dict:
@@ -1801,7 +1729,7 @@ def check_localizer_shapes(dev, inp, reps: int = 10) -> dict:
     fresh = iter([(m.fp.clone(), m.coords.clone()) for _ in range(reps + 3)])
     ms = device_ms(lambda: insert_cuda.insert_claim_into(*next(fresh), *args[2:]), [()] * reps)
     plain_ms = device_ms(lambda: insert_cuda.insert_claim_ref(*args), [()] * 3)
-    nbytes = _insert_bytes(m.fp.cpu().numpy(), cfg, xyz, mask, got[2], rounds)
+    nbytes = insert_cuda.hbm_bytes(m.fp.cpu().numpy(), xyz, mask, got[2], cfg.voxel_size, rounds)
     blocks, per_thread = insert_cuda.insert_claim_grid(xyz.shape[0], dev)
     out["insert_claim"] = {
         "shape": f"{xyz.shape[0]} points into the 2^19-slot localizer map after half its "
@@ -1819,7 +1747,7 @@ def check_localizer_shapes(dev, inp, reps: int = 10) -> dict:
             raise AssertionError(f"gather_rows {name} at the localizer's shape: differ")
         c, d = table.shape
         clamped = sl.clamp(max=c - 1)
-        nb = _gather_bytes(sl.cpu().numpy(), d, c)
+        nb = gather_cuda.hbm_bytes(sl.cpu().numpy(), d, c)
         out[f"gather_rows_{name}"] = {
             "shape": f"({c},{d}) x {sl.shape[0]} int64", "max_abs_err": 0.0,
             "ms": device_ms(lambda: gather_cuda.gather_rows_cuda(table, sl), [()] * reps),
@@ -2391,10 +2319,9 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
     the timing floor and its HBM byte bound."""
     import torch
 
-    from fastliosam_tpu_torch.core import voxel
     from fastliosam_tpu_torch.map import voxel_hash as vh
     from fastliosam_tpu_torch.ops import assoc_cuda, gather_cuda, insert_cuda, query_cuda
-    from fastliosam_tpu_torch.scripts.exp_gather import sector_bytes
+    from fastliosam_tpu_torch.ops.gather_cuda import sector_bytes
     from fastliosam_tpu_torch.utils.timing import device_ms
 
     m = fin.vmap
@@ -2450,18 +2377,7 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
     ms = device_ms(lambda p, c0, k: assoc_cuda.merged_moments_cuda(*args, p, c0, k, *tail), sets)
     plain_ms = device_ms(lambda p, c0, k: assoc_cuda.merged_moments_ref(*args, p, c0, k, *tail),
                          sets)
-    nbytes = []
-    for pools, coords0, mask in sets:
-        h0 = voxel.hash_slot(pools, c).to(torch.int64).cpu().numpy()  # (P, B, n)
-        want = voxel.fingerprint(pools).cpu().numpy()
-        base = (np.arange(lanes) * c)[None, :, None, None]
-        cand = ((h0[..., None] + np.arange(probes)) & (c - 1)) + base  # global slots
-        hit = fp_np.reshape(-1)[cand] == want[..., None]
-        anyhit = hit.any(-1)
-        found = cand[anyhit, hit[anyhit].argmax(-1)]
-        n_q = coords0.shape[0] * coords0.shape[1]
-        nbytes.append(sector_bytes(cand.reshape(-1), 1) + sector_bytes(found, 10)
-                      + pools.numel() * 4 + coords0.numel() * 4 + n_q + n_q * 13 * 4)
+    nbytes = [assoc_cuda.hbm_bytes(fp_np, pools, coords0, probes) for pools, coords0, _ in sets]
     out["merged_moments"] = record(
         "merged_moments", f"{lanes} lanes x 8192 queries x 3 pools x {probes} probes "
         "(and a ragged 3 lanes x 5000)", ms, plain_ms, float(np.mean(nbytes)))
@@ -2504,8 +2420,8 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
         for xyz, mask in lane_sets:
             sl = insert_cuda.insert_claim_cuda(fp, coords, moments, xyz, mask, vs, rounds,
                                                maxp)[2]
-            nbytes.append(sum(_insert_bytes(fp_np[b % lanes], map_cfg, xyz[b], mask[b], sl[b],
-                                            rounds) for b in range(n_lanes)))
+            nbytes.append(sum(insert_cuda.hbm_bytes(fp_np[b % lanes], xyz[b], mask[b], sl[b],
+                                                    vs, rounds) for b in range(n_lanes)))
         key = "insert_claim" if n_lanes == lanes else f"insert_claim_{n_lanes}_lanes"
         out[key] = record("insert_claim", f"{n_lanes} lanes x 8192 points, {rounds} rounds",
                           ms, plain_ms, float(np.mean(nbytes)),
@@ -2534,7 +2450,7 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
     ms = device_ms(lambda x: query_cuda.query_cached_cuda(*qargs, x, ones, vs, probes), q_sets)
     plain_ms = device_ms(lambda x: query_cuda.query_cached_ref(*qargs, x, ones, vs, probes),
                          q_sets)
-    nbytes = float(np.mean([sum(_query_bytes(cm.fp[b], map_cfg, xyz[b], ones[b])
+    nbytes = float(np.mean([sum(query_cuda.hbm_bytes(cm.fp[b], xyz[b], ones[b], vs, probes)
                                 for b in range(lanes)) for (xyz,) in q_sets]))
     out["query_cached"] = record("query_cached", f"{lanes} lanes x 8192 queries, {probes} probes",
                                  ms, plain_ms, nbytes)
@@ -3209,6 +3125,156 @@ def _gt_length(corridor, stamps) -> float:
 
 
 # ---------------------------------------------------------------------------
+# pipeline-scripts phase: profile_pipeline, exp_gps_noinit_probe,
+# roofline_odom, the XLA gather experiments and microbench_gather on the
+# feeds of eval/feeds.py
+# ---------------------------------------------------------------------------
+PIPE_SCANS = 150  # the bench's figure-8 feed length (eval/feeds.py: PIPE_SCANS)
+PIPE_REPS = 1  # timed runs a profile_pipeline variant, after its warm run
+ROOFLINE_REPS = 30
+# the JAX package's no-init ATE on the bench's odometry feed, on the CPU: the
+# largest over its identity start and 29 starts moved by 1-100 µm (0.0886 m
+# from the identity itself; 0.0847-0.1532 m over the 30, median 0.1022: float32
+# rounding after the first scans; tests/test_torch_feeds_scripts.py:
+# test_noinit_probe_jax_reading, slow); the port's card reading is gated at
+# this + 1 cm
+NOINIT_JAX_ATE_M = 0.153156
+NOINIT_MARGIN_M = 0.01
+PIPE_KERNELS = ("nearest_neighbors", "gather_rows", "merged_moments", "insert_claim")
+
+
+def pipeline_feeds() -> None:
+    """The feeds that phase 14 reads (``eval/feeds.py``: the
+    figure-8 feed with its 10 Hz GPS draws, and the odometry feed), made in
+    a feed worker at nice 10 and cached under ``build/feeds/``."""
+    import os
+
+    from fastliosam_tpu_torch.eval import feeds
+
+    os.nice(10)
+    feeds.fig8_sequence(PIPE_SCANS)
+    feeds.get_sequence()
+
+
+def pipeline_phase(dev) -> dict:
+    """Phase 14: the pipeline scripts on ``eval/feeds.py``'s feeds, each path's
+    kernel launches counted (``launches_by_path`` ``pipeline_*``).
+    ``profile_pipeline`` (4 variants, a warm and ``PIPE_REPS`` timed runs
+    each), both probes of ``exp_gps_noinit_probe`` (the no-init rollout
+    twice), ``roofline_odom`` at 32,768 / 8192 points (``ROOFLINE_REPS``
+    steps), ``exp_gather``'s XLA experiments and ``microbench_gather``
+    (C = 2^19, N = 8192). Gates: in the module docstring."""
+    from fastliosam_tpu_torch.eval import feeds
+    from fastliosam_tpu_torch.scripts import (
+        exp_gather, exp_gps_noinit_probe, microbench_gather, profile_pipeline, roofline_odom)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches, parts_s = {}, {}
+    fig8, seq = feeds.fig8_sequence(PIPE_SCANS), feeds.get_sequence()
+
+    ctx = profile_pipeline.setup(fig8, 5, dev)
+    (prof, _), launches["pipeline_profile"] = _launch_counts(
+        lambda: profile_pipeline.profile(ctx, PIPE_REPS))
+    del ctx
+    v = {name: prof[name] for name, _ in profile_pipeline.VARIANTS}
+    for name, rec in v.items():
+        print(f"  profile_pipeline {name}: {rec['scans_per_sec']} scans/s, {rec['wall_s']} s, "
+              f"keyframes / loops / solves {rec['kf_loops_solves']}, timed = warm "
+              f"{rec['replay_equal']}, launches "
+              f"{ {k: rec['launches'][k] for k in PIPE_KERNELS} } ({card})")
+    print(f"  profile_pipeline attribution (s): {prof['attribution_s']} ({card})")
+    checks = {f"{name}: the timed run equals the warm run": rec["replay_equal"]
+              for name, rec in v.items()}
+    for name in ("full", "full_deferred"):
+        _, loops, solves = v[name]["kf_loops_solves"]
+        checks[f"{name}: a loop and a solve"] = loops >= 1 and solves >= 1
+        for k in PIPE_KERNELS:
+            checks[f"{name} launches {k}"] = v[name]["launches"][k] > 0
+    checks["no_verify: no loop"] = v["no_verify"]["kf_loops_solves"][1] == 0
+    checks["no_kf: at most one keyframe"] = v["no_kf"]["kf_loops_solves"][0] <= 1
+    for k in ("merged_moments", "insert_claim"):
+        checks[f"no_kf launches {k}"] = v["no_kf"]["launches"][k] > 0
+    checks["no_kf launches no nearest_neighbors"] = v["no_kf"]["launches"][
+        "nearest_neighbors"] == 0
+    _fail("pipeline phase, profile_pipeline", checks)
+    parts_s["profile_pipeline"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    (hop, _), launches["pipeline_hop"] = _launch_counts(
+        lambda: exp_gps_noinit_probe.probe_per_hop(dev, fig8))
+    noinit, launches["pipeline_noinit"] = _launch_counts(
+        lambda: [exp_gps_noinit_probe.probe_no_init(dev, seq) for _ in range(2)])
+    (rec_ni, first), (_, second) = noinit
+    print(f"  exp_gps_noinit_probe hop: {hop} ({card})")
+    print(f"  exp_gps_noinit_probe noinit: ate_all {rec_ni['ate_all']} m (JAX on the CPU "
+          f"{NOINIT_JAX_ATE_M} m), ate_skip5 {rec_ni['ate_skip5']}, ate_skip10 "
+          f"{rec_ni['ate_skip10']}, per-scan error {rec_ni['per_scan_err']} ({card})")
+    _fail("pipeline phase, probes", {
+        "hops measured, finite": hop["n_hops"] > 0 and bool(np.isfinite(
+            [hop[k] for k in hop if k.endswith("_m")]).all()),
+        "no-init errors finite": bool(np.isfinite(first["err"]).all()),
+        "no-init rollout repeats bit for bit": np.array_equal(first["p"], second["p"]),
+        f"no-init ate_all <= {NOINIT_JAX_ATE_M} + {NOINIT_MARGIN_M} m": bool(
+            np.sqrt(np.mean(first["err"] ** 2)) <= NOINIT_JAX_ATE_M + NOINIT_MARGIN_M),
+    })
+    parts_s["exp_gps_noinit_probe"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    roof, launches["pipeline_roofline"] = _launch_counts(
+        lambda: roofline_odom.measure(dev, reps=ROOFLINE_REPS, data=seq))
+    roof["card"] = card
+    print("  roofline_odom " + json.dumps(roof))
+    _fail("pipeline phase, roofline", {
+        f"{k} finite and positive": bool(np.isfinite(roof[k]) and roof[k] > 0)
+        for k in ("flops_per_step", "xla_bytes_accessed", "io_bytes_per_step", "measured_ms")}
+        | {"the step's outputs finite": roof["finite"],
+           "the kernels' bytes counted": set(roof["kernel_bytes"]) >= {"merged_moments",
+                                                                       "insert_claim"}})
+    parts_s["roofline_odom"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    xla, launches["pipeline_exp_gather_xla"] = _launch_counts(lambda: exp_gather.run_xla(
+        dev, print_fn=lambda line: print(f"  exp_gather {line} ({card})")))
+    _fail("pipeline phase, exp_gather", {
+        f"{r['name']} equals the CPU's": r["equal_cpu"] is True
+        for r in xla if r["name"] != "scatter_add_c16"})
+    parts_s["exp_gather_xla"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mb, launches["pipeline_microbench"] = _launch_counts(lambda: microbench_gather.run(dev))
+    same = {}
+    for name in ("narrow", "bucketed"):
+        fn = getattr(microbench_gather, name)
+        got, want = fn(dev), fn("cpu")
+        same[name] = all(torch_equal_bits(a, b) for a, b in zip(got, want))
+    same["narrow_scatter"] = torch_equal_bits(microbench_gather.narrow_scatter(dev),
+                                              microbench_gather.narrow_scatter("cpu"))
+    mb["equal_cpu"] = same
+    print(f"  microbench_gather: narrow {mb['narrow_ms']:.4f} ms, bucketed "
+          f"{mb['bucketed_ms']:.4f} ms ({mb['bucketed_speedup']:.2f}x), one (8192, 10) "
+          f"scatter-add {mb['narrow_scatter_ms']:.4f} ms; equal to the CPU's {same} ({card})")
+    _fail("pipeline phase, microbench_gather", {
+        f"{name} equals the CPU's": same[name] for name in ("narrow", "bucketed")})
+    parts_s["microbench_gather"] = time.perf_counter() - t0
+    print("  pipeline phase parts (s): " + json.dumps({k: round(v, 1) for k, v in parts_s.items()}))
+    return {"profile": prof, "hop": hop, "noinit": rec_ni, "roofline": roof,
+            "exp_gather_xla": xla, "microbench": mb, "launches": launches,
+            "parts_s": parts_s, "phase_s": time.perf_counter() - t_phase}
+
+
+def torch_equal_bits(a, b) -> bool:
+    """Equal bit for bit (float32 compared as its int32 words), wherever the
+    two tensors live."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+# ---------------------------------------------------------------------------
 # measurement phase: the odometry step's per-stage profiling scripts and the
 # pose-graph solve's dense-against-PCG crossover, through their main(argv)
 # ---------------------------------------------------------------------------
@@ -3396,6 +3462,7 @@ def main(argv=None) -> int:
         fig8_job = pool.submit(figure8_feed, args.scans)
         corridor_job = pool.submit(corridor_feed, args.corridor_scans)
         bag_job = pool.submit(bag_feed, args.scans)
+        pipe_job = pool.submit(pipeline_feeds)
         _phase_s(1, "card and workers", time.perf_counter() - t_start)
 
         t0 = time.perf_counter()
@@ -3491,6 +3558,13 @@ def main(argv=None) -> int:
                                    corridor, gps_kf, fig8, fig8_traj)
             kernels.update(pp["kernels"])
             _phase_s(12, "postprocess", pp["result"]["phase_s"])
+            t0 = time.perf_counter()
+            pipe_job.result()
+            _wait_s("pipeline feeds", t0)
+            print("pipeline phase (profile_pipeline, exp_gps_noinit_probe, roofline_odom, "
+                  "exp_gather --xla, microbench_gather on eval/feeds.py's feeds):", flush=True)
+            pipe = pipeline_phase(dev)
+            _phase_s(14, "pipeline scripts", pipe["phase_s"])
             if args.profile_scans > 0:
                 print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
                 per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
@@ -3508,7 +3582,8 @@ def main(argv=None) -> int:
              "mesh": {k: sum(r[k] for r in mesh["launches_per_rank"])
                       for k in mesh["launches_per_rank"][0]},
              "mesh_nccl": mesh["nccl"]["launches"],
-             "postprocess": pp["result"]["launches"], **measure["launches"]}
+             "postprocess": pp["result"]["launches"], **measure["launches"],
+             **pipe["launches"]}
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
@@ -3537,7 +3612,8 @@ def main(argv=None) -> int:
             {"card": card_line(), "kernels": line["kernels"], "gather_cases": gather_cases,
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
              "modes": modes, "kitti": kitti, "bag": bag, "batched": batched, "mesh": mesh,
-             "postprocess": pp, "measurement": measure, "timing_floor_ms": floor,
+             "postprocess": pp, "measurement": measure, "pipeline": pipe,
+             "timing_floor_ms": floor,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))
     print(json.dumps(line))

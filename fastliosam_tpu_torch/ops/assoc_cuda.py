@@ -27,9 +27,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ..core.voxel import voxel_center
+from ..core.voxel import fingerprint, hash_slot, voxel_center
 from . import build
-from .gather_cuda import gather_rows_ref
+from .gather_cuda import gather_rows_ref, sector_bytes
 from .query_cuda import find_slots_ref
 
 KERNEL = {
@@ -162,3 +162,23 @@ def merged_moments(fp, moments, pools, coords0, mask, voxel_size: float, probes:
     if fp.is_cuda:
         return merged_moments_cuda(fp, moments, pools, coords0, mask, voxel_size, probes)
     return merged_moments_ref(fp, moments, pools, coords0, mask, voxel_size, probes)
+
+
+def hbm_bytes(fp, pools, coords0, probes: int) -> int:
+    """HBM bytes one association must move: the distinct sectors of the
+    fingerprints probed and of the moment rows found, the pools,
+    coordinates and mask read and the 13-word output rows. Lane-major with
+    ``fp (B, C)`` (each lane probing its own table)."""
+    fp_np = fp.cpu().numpy() if isinstance(fp, torch.Tensor) else np.asarray(fp)
+    c = fp_np.shape[-1]
+    h0 = hash_slot(pools, c).to(torch.int64).cpu().numpy()  # (P, n) or (P, B, n)
+    want = fingerprint(pools).cpu().numpy()
+    cand = (h0[..., None] + np.arange(probes)) & (c - 1)
+    if fp_np.ndim == 2:  # lane b's slots are b * C + slot of the flat table
+        cand = cand + (np.arange(fp_np.shape[0]) * c)[None, :, None, None]
+    hit = fp_np.reshape(-1)[cand] == want[..., None]
+    anyhit = hit.any(-1)
+    found = cand[anyhit, hit[anyhit].argmax(-1)]
+    n_q = coords0.numel() // 3
+    return (sector_bytes(cand.reshape(-1), 1) + sector_bytes(found, 10)
+            + pools.numel() * 4 + coords0.numel() * 4 + n_q + n_q * 13 * 4)

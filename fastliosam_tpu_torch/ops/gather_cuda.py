@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core.segment import lane_rows
@@ -44,6 +45,7 @@ launches = 0  # kernel launches since the last reset (see reset_launches)
 
 _WORD_TYPES = (torch.float32, torch.int32)
 _INDEX_TYPES = (torch.int32, torch.int64)
+SECTOR = 32  # bytes: the unit in which the card reads HBM
 
 
 def reset_launches() -> None:
@@ -130,3 +132,31 @@ def gather_rows(table, idx, valid=None, lane_major: bool = False):
     if table.is_cuda:
         return gather_rows_cuda(table, idx, valid, lane_major)
     return gather_rows_ref(table, idx, valid, lane_major)
+
+
+def sector_bytes(idx_np, row_words: int, col=None, cols: int = 1) -> int:
+    """Bytes of the distinct 32-byte sectors that the indexed 4-byte
+    elements touch: whole rows of ``row_words`` words for a row gather, or
+    element ``(idx, col)`` of a ``cols``-wide table for take_along."""
+    if col is None:
+        start = idx_np.astype(np.int64).reshape(-1) * row_words * 4
+        first, last = start // SECTOR, (start + row_words * 4 - 1) // SECTOR
+        span = last - first
+        sectors = np.unique(np.concatenate(
+            [first[span >= k] + k for k in range(int(span.max()) + 1)]))
+        return int(sectors.size) * SECTOR
+    addr = (idx_np.astype(np.int64) * cols + col) * 4
+    return int(np.unique(addr // SECTOR).size) * SECTOR
+
+
+def hbm_bytes(idx_np, d: int, c: int, valid=None, idx_itemsize=None) -> int:
+    """HBM bytes a row gather of ``d``-word rows from a ``c``-row table must
+    move: the distinct 32-byte sectors of the rows it reads (after the
+    index rule), the index (and mask) read and the output write."""
+    i = idx_np.astype(np.int64)
+    i = np.clip(np.where(i < 0, i + c, i), 0, c - 1)
+    if valid is not None:
+        i = i[valid]
+    n = len(idx_np)
+    return (sector_bytes(i, d) + n * (idx_itemsize or idx_np.itemsize)
+            + (n if valid is not None else 0) + n * d * 4)

@@ -35,7 +35,7 @@ import torch
 from ..core.segment import lane_rows
 from ..core.voxel import fingerprint, hash_slot, voxel_center, voxel_coords
 from . import build
-from .gather_cuda import gather_rows_ref
+from .gather_cuda import gather_rows_ref, sector_bytes
 
 KERNEL = {
     "name": "insert_claim",
@@ -240,3 +240,23 @@ def insert_claim(fp, coords, moments, xyz, mask, voxel_size: float, rounds: int,
                                  max_points_per_voxel)
     return insert_claim_ref(fp, coords, moments, xyz, mask, voxel_size, rounds,
                             max_points_per_voxel)
+
+
+def hbm_bytes(fp_np, xyz, mask, sl, voxel_size: float, rounds: int) -> int:
+    """HBM bytes the insert must move: the distinct fingerprint sectors of
+    every probe chain walked (to the slot found, or ``rounds`` long where
+    none was), the sectors of the new fingerprint words and coordinate rows
+    and of the old moment words read, the xyz and mask read and the sl,
+    upd and n_dropped writes. ``fp_np``: the fingerprints before; ``sl``:
+    the slots the insert gave."""
+    c = fp_np.shape[-1]
+    h0 = hash_slot(voxel_coords(xyz, voxel_size), c).to(torch.int64).cpu().numpy()
+    sl, mask = sl.cpu().numpy(), mask.cpu().numpy()
+    found = sl < c
+    steps = np.where(found, ((sl - h0) & (c - 1)) + 1, np.where(mask, rounds, 0))
+    walked = np.concatenate([(h0[steps > k] + k) & (c - 1) for k in range(int(steps.max()))])
+    slots = np.unique(sl[found])
+    new = slots[fp_np[slots] == 0]  # empty before: a winner wrote it
+    n = len(sl)
+    return (sector_bytes(walked, 1) + sector_bytes(new, 1) + sector_bytes(new, 3)
+            + sector_bytes(slots * 10, 1) + n * (12 + 1) + n * (8 + 40) + 4)

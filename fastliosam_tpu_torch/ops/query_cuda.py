@@ -32,7 +32,7 @@ import torch
 
 from ..core.voxel import fingerprint, hash_slot, voxel_coords
 from . import build
-from .gather_cuda import gather_rows_ref
+from .gather_cuda import gather_rows_ref, sector_bytes
 
 KERNEL = {
     "name": "query_cached",
@@ -146,3 +146,20 @@ def query_cached(fp, normal, d, plane_valid, xyz, mask, voxel_size: float, probe
     if fp.is_cuda:
         return query_cached_cuda(fp, normal, d, plane_valid, xyz, mask, voxel_size, probes)
     return query_cached_ref(fp, normal, d, plane_valid, xyz, mask, voxel_size, probes)
+
+
+def hbm_bytes(fp, xyz, mask, voxel_size: float, probes: int) -> int:
+    """HBM bytes the cached-plane query must move: the distinct fingerprint
+    sectors of the live queries' probes, the sectors of the rows read
+    (normal, d and plane_valid: three arrays; slot 0 for a miss), the xyz
+    and mask read and the 17-byte output rows."""
+    cap = fp.shape[-1]
+    live = mask.cpu().numpy()
+    coords = voxel_coords(xyz, voxel_size)
+    h0 = hash_slot(coords, cap).to(torch.int64).cpu().numpy()[live]
+    cand = (h0[:, None] + np.arange(probes)) & (cap - 1)
+    slots, _ = find_slots_ref(fp, coords, mask, probes)
+    rows = np.clip(slots.cpu().numpy(), 0, None)
+    n = len(live)
+    return (sector_bytes(cand.reshape(-1), 1) + sector_bytes(rows, 3) + 2 * sector_bytes(rows, 1)
+            + n * 12 + n + n * 17)

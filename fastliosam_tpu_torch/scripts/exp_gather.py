@@ -25,6 +25,21 @@ lane-major row gather (``gather_rows(..., lane_major=True)`` of an (8, 2^19,
 same rows, timed in turns (kernel, library, library, kernel, ...) over
 ``--reps`` fresh slot sets each, so that a drift of the card's clock falls
 on both alike.
+
+``--xla`` runs the XLA parts of the two JAX scripts instead (:func:`run_xla`),
+on the same tables and index draws: ``exp_c_onehot_mxu``
+(``exp_assoc_kernels.py:136``: the one-hot (N, 1024) x (1024, 512·16)
+product, then ``take_along_axis`` within the row group; exact only without
+TF32, which the script turns off), ``exp_d_probe_windows`` (:166: a 4-row
+window read as one strided-view gather against 4 row gathers, which must be
+equal), and the timings of ``exp_pallas_gather.py:39-77``: the (C,16),
+(C,10), (C,128) and (C,) row gathers, 15 chained (C,) gathers (the float
+read cast to int32 toward zero, as XLA's convert does) and the (C,16)
+scatter-add, here the fixed-order sums of ``core/segment.py`` (no float
+``index_add_``: its atomics change the sums' last bits from run to run).
+The gathers go through the port's row gather (``gather_rows``) and
+``take_along_axis``, timed beside ``index_select``; on the card every
+gather's result equals the same function's on the CPU bit for bit.
 """
 from __future__ import annotations
 
@@ -35,12 +50,14 @@ import sys
 import numpy as np
 import torch
 
+from ..core.segment import scatter_add
 from ..ops import gather_cuda, take_along_cuda
+from ..ops.gather_cuda import SECTOR, sector_bytes
 from ..utils.device import resolve_device
+from ..utils.precision import geometry_precision
 from ..utils.timing import device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-SECTOR = 32
 
 
 def experiments(c: int = 1 << 19, n: int = 8192, small_c: int = 1 << 14,
@@ -62,21 +79,6 @@ def experiments(c: int = 1 << 19, n: int = 8192, small_c: int = 1 << 14,
 
 def _bits(t):
     return t.contiguous().view(torch.int32)
-
-
-def sector_bytes(idx_np, row_words: int, col=None, cols: int = 1) -> int:
-    """Bytes of the distinct 32-byte sectors that the indexed 4-byte
-    elements touch: whole rows of ``row_words`` words for a row gather, or
-    element ``(idx, col)`` of a ``cols``-wide table for take_along."""
-    if col is None:
-        start = idx_np.astype(np.int64).reshape(-1) * row_words * 4
-        first, last = start // SECTOR, (start + row_words * 4 - 1) // SECTOR
-        span = last - first
-        sectors = np.unique(np.concatenate(
-            [first[span >= k] + k for k in range(int(span.max()) + 1)]))
-        return int(sectors.size) * SECTOR
-    addr = (idx_np.astype(np.int64) * cols + col) * 4
-    return int(np.unique(addr // SECTOR).size) * SECTOR
 
 
 def _one(exp, dev, reps: int, seed: int) -> dict:
@@ -216,6 +218,151 @@ def run(device=None, reps: int = 10, seed: int = 0, exps=None, print_fn=print) -
     return out
 
 
+# ---------------------------------------------------------------------------
+# the XLA parts of scripts/exp_assoc_kernels.py and scripts/exp_pallas_gather.py
+# ---------------------------------------------------------------------------
+def onehot_gather(table, idx, c1: int, c2: int):
+    """``exp_c_onehot_mxu``'s two-level gather: the one-hot ``(N, c1)``
+    product with the table as ``(c1, c2 * D)`` picks each query's row group,
+    ``take_along_axis`` its row within the group. Equals ``table[idx]``
+    when the product is exact (no TF32)."""
+    d = table.shape[1]
+    g1 = idx // c2
+    onehot = (torch.arange(c1, dtype=torch.int32, device=idx.device)[None, :]
+              == g1[:, None]).to(torch.float32)
+    groups = onehot @ table.reshape(c1, c2 * d)
+    within = ((idx % c2)[:, None] * d
+              + torch.arange(d, dtype=torch.int32, device=idx.device)[None, :])
+    return take_along_cuda.take_along_axis(groups, within.to(torch.int32), 1)
+
+
+def window_rows(table, idx):
+    """``exp_d_probe_windows``' window: rows ``idx .. idx + 3`` of each
+    query as one gather from a strided view of overlapping 4-row windows
+    (the JAX script's ``vmap`` of ``dynamic_slice``; ``idx`` <= C - 4)."""
+    c, d = table.shape
+    return torch.as_strided(table, (c - 3, 4, d), (d, d, 1))[idx.to(torch.int64)]
+
+
+def four_gathers(table, idx):
+    """The same rows as four row gathers (indices wrap at C)."""
+    c = table.shape[0]
+    return torch.stack([gather_cuda.gather_rows(table, (idx + k) & (c - 1))
+                        for k in range(4)], 1)
+
+
+def chained_gather(table1d, idx, links: int = 15):
+    """``links`` dependent gathers of a ``(C,)`` table, as one association's
+    probe chain: ``x = (int32(table[x]) ^ (x + k)) & (C - 1)``; the cast
+    truncates toward zero."""
+    c = table1d.shape[0]
+    x = idx
+    for k in range(links):
+        x = (gather_cuda.gather_rows(table1d, x).to(torch.int32) ^ (x + k)) & (c - 1)
+    return x
+
+
+def scatter_rows(table, idx, n: int):
+    """The (C, D) scatter-add of ``table[:n]`` at ``idx`` into zeros, summed
+    in the fixed order of ``core/segment.py``."""
+    return scatter_add(idx, table[:n], table.shape[0])
+
+
+def xla_tables(c: int, seed: int = 0) -> dict:
+    """The two JAX scripts' tables, drawn as they draw them: the (C,16)
+    table of ``exp_assoc_kernels.py``; ``exp_pallas_gather.py``'s (C,16),
+    (C,10), (C,128) and (C,) tables from one generator in that order."""
+    rng = np.random.default_rng(seed)
+    out = {"assoc16": rng.normal(size=(c, 16)).astype(np.float32)}
+    rng = np.random.default_rng(seed)
+    for name, shape in (("t16", (c, 16)), ("t10", (c, 10)), ("t128", (c, 128)), ("t1d", (c,))):
+        out[name] = rng.normal(size=shape).astype(np.float32)
+    return out
+
+
+def xla_indices(seed: int, n: int, cap: int) -> np.ndarray:
+    """The JAX scripts' ``mk_idx``: ``n`` uniform int32 indices below ``cap``."""
+    return np.random.default_rng(seed).integers(0, cap, size=(n,)).astype(np.int32)
+
+
+def run_xla(device=None, reps: int = 10, c: int = 1 << 19, n: int = 8192, c1: int = 1024,
+            c2: int = 512, seed: int = 0, print_fn=print) -> list[dict]:
+    """The XLA experiments (module docstring), one record each: the port's
+    route timed (``ms``) beside ``index_select`` where it computes the same
+    rows (``library_ms``), on the card also ``equal_cpu`` (the same
+    function on the CPU, bit for bit). Raises where ``exp_c`` is not exact,
+    the window differs from the four gathers, or a card gather differs
+    from the CPU's."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    host = xla_tables(c, seed)
+    tabs = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    cpu_tabs = {k: torch.from_numpy(v) for k, v in host.items()}
+
+    def idx_sets(k: int, mask: int = -1):
+        return [torch.from_numpy(xla_indices(s, n, c) & mask).to(dev) for s in range(k)]
+
+    specs = [  # name, replaces, function (table name, idx) -> out, library or None, sets
+        ("exp_c_onehot_mxu", "scripts/exp_assoc_kernels.py:136", "assoc16",
+         lambda t, i: onehot_gather(t, i, c1, c2), None, min(reps, 3), -1),
+        ("exp_d_window", "scripts/exp_assoc_kernels.py:170", "assoc16", window_rows, None,
+         min(reps, 5), c - 5),
+        ("exp_d_four_gathers", "scripts/exp_assoc_kernels.py:176", "assoc16", four_gathers,
+         None, min(reps, 5), c - 5),
+        ("gather_c16", "scripts/exp_pallas_gather.py:51", "t16", gather_cuda.gather_rows,
+         True, reps, -1),
+        ("gather_c10", "scripts/exp_pallas_gather.py:53", "t10", gather_cuda.gather_rows,
+         True, reps, -1),
+        ("gather_c128", "scripts/exp_pallas_gather.py:55", "t128", gather_cuda.gather_rows,
+         True, reps, -1),
+        ("gather_c", "scripts/exp_pallas_gather.py:57", "t1d", gather_cuda.gather_rows,
+         True, reps, -1),
+        ("chained_15", "scripts/exp_pallas_gather.py:61-65", "t1d", chained_gather, None,
+         reps, -1),
+        ("scatter_add_c16", "scripts/exp_pallas_gather.py:71-72", "t16",
+         lambda t, i: scatter_rows(t, i, n), None, reps, -1),
+    ]
+    out = []
+    with geometry_precision():  # the one-hot product is exact only in full float32
+        for name, replaces, tab, fn, library, k, mask in specs:
+            sets = idx_sets(k, mask)
+            table = tabs[tab]
+            got = fn(table, sets[0])
+            rec = {"name": name, "replaces": replaces, "table": list(table.shape), "n": n,
+                   "device": dev.type, "ms": None, "library_ms": None, "equal_cpu": None}
+            if cuda:
+                rec["ms"] = device_ms(lambda i: fn(table, i), [(i,) for i in sets])
+                if library:
+                    rec["library_ms"] = device_ms(
+                        lambda i: torch.index_select(table, 0, i),
+                        [(i.to(torch.int64),) for i in sets])
+                want = fn(cpu_tabs[tab], sets[0].cpu())
+                rec["equal_cpu"] = bool(torch.equal(_bits(got.cpu()), _bits(want)))
+            out.append(rec)
+        # the JAX scripts' checks: exp_c on index set 7 against the plain
+        # gather, exp_d on set 3 (masked to C - 5) against the four gathers
+        t, i7 = tabs["assoc16"], torch.from_numpy(xla_indices(7, n, c)).to(dev)
+        exact = bool(torch.equal(_bits(onehot_gather(t, i7, c1, c2)),
+                                 _bits(gather_cuda.gather_rows(t, i7))))
+        i3 = torch.from_numpy(xla_indices(3, n, c) & (c - 5)).to(dev)
+        window_equal = bool(torch.equal(_bits(window_rows(t, i3)), _bits(four_gathers(t, i3))))
+    out[0]["exact"] = exact
+    out[1]["equal_four_gathers"] = window_equal
+    for rec in out:
+        timing = ("not timed on the CPU" if rec["ms"] is None else
+                  f"{rec['ms']:.4f} ms" + ("" if rec["library_ms"] is None
+                                           else f", index_select {rec['library_ms']:.4f} ms"))
+        extra = "".join(f", {k}={rec[k]}" for k in ("exact", "equal_four_gathers", "equal_cpu")
+                        if rec.get(k) is not None)
+        print_fn(f"{rec['name']} ({rec['replaces']}): table {tuple(rec['table'])} x {n}: "
+                 f"{timing}{extra}")
+    bad = [r["name"] for r in out if r["equal_cpu"] is False and r["name"] != "scatter_add_c16"]
+    if not exact or not window_equal or bad:
+        raise AssertionError(f"XLA experiments: exact={exact}, window equal={window_equal}, "
+                             f"card differs from the CPU: {bad}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -224,9 +371,16 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", action="store_true",
                     help="time the lane-major row gather against torch.gather instead")
     ap.add_argument("--turns", type=int, default=4, help="--lanes: timed turns of each")
+    ap.add_argument("--xla", action="store_true",
+                    help="run the XLA experiments (one-hot, windows, gathers, scatter) instead")
     args = ap.parse_args(argv)
     if args.lanes:
         print(json.dumps(lane_gather_turns(args.device, reps=args.reps, turns=args.turns)))
+        return 0
+    if args.xla:
+        recs = run_xla(args.device, reps=args.reps)
+        if args.json:
+            print(json.dumps(recs))
         return 0
     recs = run(args.device, reps=args.reps)
     if args.json:

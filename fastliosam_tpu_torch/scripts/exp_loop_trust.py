@@ -62,31 +62,15 @@ def ensure_longrun_dataset(world: str = "canyon") -> str:
 
 def make_bench_engine(device=None, max_kf: int = 128, max_between: int = 256,
                       max_gps: int = 64, chunk: int = 5, mesh=None):
-    """The bench's loop-closing pipeline (``bench.py: make_engine_for``):
-    8192 iEKF points, merged3, a 2^19-slot map with 2 probes, loops at
-    10 m / 4 s over 16,384-point submaps, keyframes every metre; with
-    ``mesh``, in mesh mode (``parallel``) on the rank's device."""
-    from ..loop import LoopConfig
-    from ..map import VoxelMapConfig
-    from ..odom import OdomConfig
-    from ..pgo import PoseGraphConfig
-    from ..runtime import EngineConfig, SlamEngine
+    """The bench's loop-closing pipeline (``eval/feeds.py: make_engine_for``,
+    the port of ``bench.py: make_engine_for``): 8192 iEKF points, merged3, a
+    2^19-slot map with 2 probes, loops at 10 m / 4 s over 16,384-point
+    submaps, keyframes every metre; with ``mesh``, in mesh mode
+    (``parallel``) on the rank's device."""
+    from ..eval.feeds import make_engine_for
 
-    return SlamEngine(
-        odom_cfg=OdomConfig(point_filter_num=1, blind=1.0, filter_size_surf=0.5,
-                            num_ds_points=8192, det_range=150.0, evict_every=10_000,
-                            query_mode="merged3"),
-        map_cfg=VoxelMapConfig(capacity=1 << 19, voxel_size=0.5, min_points=5,
-                               query_probes=2, insert_probes=2, claim_probes=2),
-        loop_cfg=LoopConfig(radius=10.0, time_gap=4.0, num_submap_keyframes=5,
-                            voxel_res=0.3, submap_points=16384),
-        pgo_cfg=PoseGraphConfig(max_keyframes=max_kf, max_between=max_between,
-                                max_gps=max_gps),
-        cfg=EngineConfig(keyframe_threshold=1.0, loop_check_every=chunk,
-                         kf_cloud_points=4096, kf_cloud_voxel=0.3),
-        mesh=mesh,
-        device=device,
-    )
+    return make_engine_for(None, chunk=chunk, max_kf=max_kf, max_between=max_between,
+                           max_gps=max_gps, device=device, mesh=mesh)
 
 
 def make_longrun_engine(loop_cfg=None, device=None):

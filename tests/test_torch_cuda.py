@@ -1336,3 +1336,22 @@ def test_device_events_count_what_key_averages_counts(cuda_device):
     assert sum(c for c, _ in events.values()) == sum(e.count for e in rows) > 40
     np.testing.assert_allclose(sum(ns for _, ns in events.values()) / 1e3,
                                sum(e.self_device_time_total for e in rows), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_profile_pipeline_variants_repeat_bit_for_bit(cuda_device):
+    """``profile_pipeline``'s four variants on the card, over the bench's
+    figure-8 feed cut to 30 scans: every timed run equals its warm run bit
+    for bit (trajectory, keyframes, loops, solves), and each variant runs
+    the association and the insert kernels."""
+    from fastliosam_tpu_torch.eval import feeds
+    from fastliosam_tpu_torch.scripts import profile_pipeline
+
+    ctx = profile_pipeline.setup(feeds.fig8_sequence(30), 5, cuda_device)
+    out, runs = profile_pipeline.profile(ctx, reps=1)
+    for variant, _ in profile_pipeline.VARIANTS:
+        rec = out[variant]
+        assert rec["replay_equal"], variant
+        assert rec["launches"]["merged_moments"] > 0 and rec["launches"]["insert_claim"] > 0
+        assert np.isfinite(runs[variant]["traj"]).all() and rec["scans_per_sec"] > 0
+    assert out["no_kf"]["kf_loops_solves"][0] == 1 < out["full"]["kf_loops_solves"][0]

@@ -41,6 +41,8 @@ from fastliosam_tpu.pgo import solver as jsolver  # noqa: E402
 from fastliosam_tpu.utils import timing as jtiming  # noqa: E402
 from fastliosam_tpu_torch.scripts import bench_pgo_crossover, bench_scaling  # noqa: E402
 from fastliosam_tpu_torch.scripts import profile_insert, profile_step, profile_step2  # noqa: E402
+from fastliosam_tpu_torch.scripts import (  # noqa: E402
+    exp_gather, exp_gps_noinit_probe, microbench_gather, profile_pipeline, roofline_odom)
 from fastliosam_tpu_torch.utils import timing as ttiming  # noqa: E402
 
 from _torch_parity import N, tree_np  # noqa: E402
@@ -308,8 +310,10 @@ def test_profile_insert_stages_match_jax():
 
 
 @pytest.mark.parametrize("module", [profile_step2, profile_step, profile_insert,
-                                    bench_pgo_crossover])
+                                    bench_pgo_crossover, profile_pipeline, exp_gps_noinit_probe,
+                                    roofline_odom, exp_gather, microbench_gather])
 def test_scripts_need_cuda_or_cpu(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {bench_pgo_crossover: ["--sizes", "16"], exp_gather: ["--xla"]}.get(module, [])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        module.main(["--sizes", "16"] if module is bench_pgo_crossover else [])
+        module.main(argv)

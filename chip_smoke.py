@@ -218,7 +218,34 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      roofline's counts finite and positive; ``exp_c`` exact, the ``exp_d``
      window equal to its four gathers; every gather equal to the same
      function's result on the CPU bit for bit. Each line is printed beside
-     the card's name and power limit.
+     the card's name and power limit;
+ 15. scaling phase, last, the port of the JAX scripts that sweep device
+     counts, each through its ``main(argv)``: ``bench_scaling.py
+     --keyframes 1024 --devices 1 4`` (the factor-sharded solve, the
+     point-sharded loop ICP at its full 16,384 points, so the NN at 4096 x
+     16,384 a rank, the keyframe-sharded search over 4096 keyframes) and
+     ``bench_crossover.py --sizes 1024 --devices 4`` (four stages, each
+     with its single twin on rank 0; the 1-rank count cut for the phase's
+     time), their ranks spawned as one world of 4 gloo ranks on
+     ``cuda:0``, every count a subgroup of it; and
+     ``bench_pp_overlap.py`` at its defaults (odometry and verification on
+     ``cuda:0``; the split needs a second card). Only the sweeps are cut.
+     Gates: every script exits 0 with its JSON; the solve's cost the same
+     on every rank, finite and not above the cost its sharded sums start
+     from, its solved positions within 1e-3 m of the 1-rank solve's
+     (``build_graph``'s poses satisfy every factor, so the costs
+     themselves are float32 rounding, another at each rank count); the
+     ICP's fitness within 1e-4 of the
+     1-rank fitness; the candidate index the 1-rank index; every crossover
+     time finite and positive; ``pp_overlap``'s times positive, its
+     verification flag the same in every chunk of every run and its split
+     keys null with their reason; the NN launched on every rank of the ICP
+     sweep, the association and the insert on the replicated voxel query
+     and on ``pp_overlap``'s odometry, the NN on its verification (the
+     ranks' launches, summed, under ``launches_by_path`` ``bench_scaling``,
+     ``bench_crossover``, ``bench_pp_overlap``). On one card the sweeps
+     measure the sharding machinery's cost (gloo collectives through host
+     memory), not scaling.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours and the row gather (the loop closure's plane refresh) on the
@@ -232,7 +259,8 @@ the batched rollout of phase 10, the cached query, the row gather and the
 insert on its cached-mode batch; the k-NN and the neighbour-voxel
 kernel on the postprocess path of phase 12; the association, the insert
 and the row gather on the stages of phase 13 that run them; the NN, the
-row gather, the association and the insert on phase 14's full variants). Phases 4-6
+row gather, the association and the insert on phase 14's full variants;
+the kernels of phase 15's paths as listed there). Phases 4-6
 and 9 report the insert's, the association's and the row gather's
 launches per scan, and device operations per scan over a window traced
 with ``torch.profiler`` (the last 15 scans of the replay in 4 and 5, the
@@ -1348,31 +1376,16 @@ def modes_phase(dev, feed, chunk: int = 5) -> dict:
     return out
 
 
-def gps_fixes(feed, anchor=(22.3193, 114.1694, 10.0)):
-    """The corridor's world-frame fixes as GpsFix records through WGS84
-    geodesy from the bench's anchor (``bench.py: _fixes_from_data``)."""
-    import torch
-
-    from fastliosam_tpu_torch.core.geodesy import LocalCartesian
-    from fastliosam_tpu_torch.runtime import GpsFix
-
-    lc = LocalCartesian.from_origin(*anchor)
-    lat, lon, alt = (t.numpy() for t in lc.reverse(
-        torch.from_numpy(feed["gps_xyz"].astype(np.float32))))
-    return [GpsFix(stamp=float(ts), lat=float(a), lon=float(b), alt=float(h),
-                   cov_xyz=(0.25, 0.25, 1.0))
-            for ts, a, b, h in zip(feed["gps_t"], lat, lon, alt)]
-
-
 def gps_phase(dev, feed, chunk: int = 5):
     """The bench's corridor (``bench.py: bench_gps_corridor``): process_chunk
     with the bench's GPS configuration (the GPS-off run, which gated
     nothing, was cut to make room for the mesh phase)."""
+    from fastliosam_tpu_torch.eval.feeds import _fixes_from_data
     from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
 
     engine = make_bench_engine(dev, max_kf=256, max_between=512, max_gps=256, chunk=chunk)
     n_chunks = len(feed["stamps"]) // chunk
-    fixes = gps_fixes(feed)
+    fixes = _fixes_from_data(feed)
     engine.pgo_cfg = engine.pgo_cfg._replace(gps_huber_delta=2.0)
     engine.cfg = engine.cfg._replace(use_gps=True, gps_dist_thres=2.0, gps_noise_floor=0.25,
                                      odom_trans_sqrt_info=50.0, odom_rot_sqrt_info=1000.0)
@@ -2934,6 +2947,7 @@ def postprocess_phase(dev, map_pcd: Path, corridor, gps_kf, fig8, fig8_traj) -> 
     ``icp_2d_with_scale``, ``match_trajectory`` and the detector."""
     import torch
 
+    from fastliosam_tpu_torch.eval.feeds import _fixes_from_data
     from fastliosam_tpu_torch.io.pcd import read_pcd, xyz_of
     from fastliosam_tpu_torch.postprocess import (Similarity2D, denoise_slam_map,
                                                   euclidean_clusters, georeference_trajectory,
@@ -2961,7 +2975,7 @@ def postprocess_phase(dev, map_pcd: Path, corridor, gps_kf, fig8, fig8_traj) -> 
 
     # the inputs of the alignment and matching runs
     kf_t, kf_p = gps_kf
-    fixes = gps_fixes(corridor)
+    fixes = _fixes_from_data(corridor)
     gps_lat, gps_lon, gps_alt = (np.array([getattr(f, a) for f in fixes])
                                  for a in ("lat", "lon", "alt"))
     theta, scale, tx, ty = PP_TRUE_SIM
@@ -3100,9 +3114,10 @@ def corridor_roads(corridor, fixes):
     import torch
 
     from fastliosam_tpu_torch.core.geodesy import LocalCartesian
+    from fastliosam_tpu_torch.eval.feeds import GPS_ANCHOR
     from fastliosam_tpu_torch.postprocess.mapmatch import RoadNetwork
 
-    bench = LocalCartesian.from_origin(22.3193, 114.1694, 10.0)  # gps_fixes' anchor
+    bench = LocalCartesian.from_origin(*GPS_ANCHOR)  # the fixes' anchor
     first = LocalCartesian.from_origin(fixes[0].lat, fixes[0].lon, fixes[0].alt)
     path = np.concatenate([corridor["gt_p"][::10], corridor["gt_p"][-1:]]).astype(np.float32)
     lat, lon, alt = bench.reverse(torch.from_numpy(path))
@@ -3387,6 +3402,129 @@ def run_measurement_phase(timeout_s: float = 600.0) -> dict:
     return json.loads((out / "phase.json").read_text())
 
 
+# ---------------------------------------------------------------------------
+# scaling phase: the JAX scripts that sweep device counts, over
+# torch.distributed ranks on the one card
+# ---------------------------------------------------------------------------
+SCALING_ARGV = ["--keyframes", "1024", "--devices", "1", "4"]
+# the solved ring's positions at 4 ranks against 1 rank's: float32 composes
+# the 1024-step ring (radius 81.5 m, one ulp 7.6e-6 m) with ~32 ulps of error
+# (2.4e-4 m), so its positions are defined to that; 4 ranks read 1.37e-4 m
+SCALING_POSE_GATE_M = 1e-3
+# the crossover's sweep cut to 4 ranks (its single twin and the 4-rank
+# programs) to keep the phase inside its 90 s: the sharded solve's 269
+# gloo collectives take ~3.5 s a call at 4 ranks on one card
+CROSSOVER_ARGV = ["--sizes", "1024", "--devices", "4"]
+
+
+def _summed(records) -> dict:
+    """Kernel launch records summed by kernel name."""
+    tot = {}
+    for rec in records:
+        for k, v in rec.items():
+            tot[k] = tot.get(k, 0) + v
+    return tot
+
+
+def scaling_phase(dev) -> dict:
+    """``bench_scaling``, ``bench_crossover`` and ``bench_pp_overlap``
+    through their ``main(argv)`` (see the module docstring, phase 15)."""
+    from fastliosam_tpu_torch.scripts import bench_crossover, bench_pp_overlap, bench_scaling
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "scaling_phase"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs, parts_s = {}, {}
+    for name, mod, argv in (("bench_scaling", bench_scaling, SCALING_ARGV),
+                            ("bench_crossover", bench_crossover, CROSSOVER_ARGV),
+                            ("bench_pp_overlap", bench_pp_overlap, [])):
+        path = out_dir / f"{name}.json"
+        path.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        rc = mod.main(argv + ["--out", str(path)])
+        parts_s[name] = time.perf_counter() - t0
+        _fail(f"scaling phase, {name}", {"exit 0 with its JSON": rc == 0 and path.exists()})
+        runs[name] = json.loads(path.read_text())
+    sc, xo, pp = runs["bench_scaling"], runs["bench_crossover"], runs["bench_pp_overlap"]
+    nn, mm, ins = "nearest_neighbors", "merged_moments", "insert_claim"
+    checks = {"ranks share cuda:0 over gloo": sc["dist_backend"] == "gloo"
+              and xo["dist_backend"] == "gloo"}
+    fit1, idx1 = (sc[k][0]["aux"] for k in ("loop_icp", "loop_detect"))
+    for row in sc["pgo_solve"]:
+        # build_graph's poses satisfy every factor: its costs are float32
+        # rounding, another at every rank count (the device's sums in another
+        # order), so each is held to its own count's start and the solved
+        # positions to the 1-rank solve's
+        n, c = row["devices"], row["aux"]
+        checks[f"{n} ranks: the solve's cost the same on every rank"] = (
+            row["aux_by_rank"] == [c] * n)
+        checks[f"{n} ranks: the cost finite, not above its start"] = bool(
+            np.isfinite(c) and c <= row["start_cost"])
+        checks[f"{n} ranks: the solved positions within {SCALING_POSE_GATE_M} m of 1 rank's"] = (
+            row["pose_dev_m"] <= SCALING_POSE_GATE_M)
+    for row in sc["loop_icp"]:
+        n = row["devices"]
+        checks[f"{n} ranks: the ICP fitness within 1e-4 of 1 rank's"] = (
+            abs(row["aux"] - fit1) <= 1e-4 and row["aux_by_rank"] == [row["aux"]] * n)
+        checks[f"{n} ranks: the NN launched on every rank of the ICP"] = all(
+            r.get(nn, 0) > 0 for r in row["launches_by_rank"])
+    for row in sc["loop_detect"]:
+        checks[f"{row['devices']} ranks: the candidate index 1 rank's"] = (
+            row["aux_by_rank"] == [idx1] * row["devices"])
+    times = [t for rows in xo["stages"].values() for r in rows
+             for t in [r["single_ms"], *r["sharded_ms"].values()]]
+    checks["every crossover time finite and positive"] = bool(
+        len(times) == 4 * 2 and all(np.isfinite(t) and t > 0 for t in times))
+    vq = xo["stages"]["voxel_query"][0]["single_launches"]
+    checks["the replicated voxel query launches merged_moments and insert_claim"] = (
+        vq.get(mm, 0) > 0 and vq.get(ins, 0) > 0)
+    flags = [f for run in pp["accepted_by_run"]["same_device"] for f in run]
+    odo, ver = pp["launches"].get("odometry", {}), pp["launches"].get("verification", {})
+    checks.update({
+        "pp_overlap's times positive": pp["odom_only_s"] > 0 and pp["same_device_s"] > 0,
+        "pp_overlap's flag the same in every chunk of every run": (
+            len(flags) == 3 * pp["n_chunks"] and len(set(flags)) == 1),
+        "pp_overlap's split keys null, with the reason": (
+            pp["split_device_s"] is None and pp["verify_cost_hidden_frac"] is None
+            and pp["speedup"] is None and "2 CUDA devices" in pp.get("split", "")),
+        "pp_overlap's odometry launches merged_moments and insert_claim": (
+            odo.get(mm, 0) > 0 and odo.get(ins, 0) > 0),
+        "pp_overlap's verification launches the NN": ver.get(nn, 0) > 0,
+    })
+    launches = {
+        "bench_scaling": _summed(r for key in ("pgo_solve", "loop_icp", "loop_detect")
+                                 for row in sc[key] for r in row["launches_by_rank"]),
+        "bench_crossover": _summed([row["single_launches"] for rows in xo["stages"].values()
+                                    for row in rows] +
+                                   [r for rows in xo["stages"].values() for row in rows
+                                    for ranks in row["sharded_launches"].values()
+                                    for r in ranks]),
+        "bench_pp_overlap": _summed([odo, ver]),
+    }
+    result = {"bench_scaling": sc, "bench_crossover": xo, "bench_pp_overlap": pp,
+              "parts_s": parts_s, "launches": launches,
+              "phase_s": time.perf_counter() - t_phase}
+    for key in ("pgo_solve", "loop_icp", "loop_detect"):
+        print(f"  bench_scaling {key}: " + ", ".join(
+            f"{r['devices']} ranks {r['ms']} ms (efficiency {r['efficiency']}, "
+            f"{r['collectives_per_call']:.0f} collectives a call, result {r['aux']}"
+            + (f" from {r['start_cost']}, positions {r['pose_dev_m']} m from 1 rank's"
+               if "start_cost" in r else "") + ")"
+            for r in sc[key]))
+    for stage, rows in xo["stages"].items():
+        r = rows[0]
+        print(f"  bench_crossover {stage} K={r['K']}: single {r['single_ms']} ms, sharded "
+              f"{r['sharded_ms']} ms, within 1.2x at {r['within_1p2x']}")
+    print(f"  bench_pp_overlap: odometry alone {pp['odom_only_s']} s, with verification on the "
+          f"same card {pp['same_device_s']} s; split: {pp.get('split')}; parts "
+          + json.dumps({k: round(v, 1) for k, v in parts_s.items()})
+          + f" s, of them rank 0 in the sweeps {sc['rank_s']:.1f} / {xo['rank_s']:.1f} s; "
+          f"the worlds' start-up and end (s) {json.dumps(sc['ranks_s'])} / "
+          f"{json.dumps(xo['ranks_s'])}")
+    _fail("scaling phase", checks)
+    return result
+
+
 def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     """Device time by kernel over the traced window, and the device's busy
     share of the window's wall time (the port runs on one stream, so the
@@ -3565,6 +3703,10 @@ def main(argv=None) -> int:
                   "exp_gather --xla, microbench_gather on eval/feeds.py's feeds):", flush=True)
             pipe = pipeline_phase(dev)
             _phase_s(14, "pipeline scripts", pipe["phase_s"])
+            print("scaling phase (bench_scaling, bench_crossover: 4 gloo ranks on cuda:0; "
+                  "bench_pp_overlap on cuda:0):", flush=True)
+            scaling = scaling_phase(dev)
+            _phase_s(15, "scaling scripts", scaling["phase_s"])
             if args.profile_scans > 0:
                 print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
                 per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
@@ -3583,7 +3725,7 @@ def main(argv=None) -> int:
                       for k in mesh["launches_per_rank"][0]},
              "mesh_nccl": mesh["nccl"]["launches"],
              "postprocess": pp["result"]["launches"], **measure["launches"],
-             **pipe["launches"]}
+             **pipe["launches"], **scaling["launches"]}
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
@@ -3592,8 +3734,8 @@ def main(argv=None) -> int:
     for mod in KERNEL_MODULES:
         rec = dict(mod.KERNEL)
         name = rec["name"]
-        rec["launches"] = sum(p[name] for p in paths.values())
-        rec["launches_by_path"] = {k: p[name] for k, p in paths.items()}
+        rec["launches"] = sum(p.get(name, 0) for p in paths.values())
+        rec["launches_by_path"] = {k: p.get(name, 0) for k, p in paths.items()}
         rec.update(kernels[name])
         if rec["route"] != mod.KERNEL["route"]:
             raise AssertionError(f"{name}: a check overwrote the kernel's route")
@@ -3613,7 +3755,7 @@ def main(argv=None) -> int:
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
              "modes": modes, "kitti": kitti, "bag": bag, "batched": batched, "mesh": mesh,
              "postprocess": pp, "measurement": measure, "pipeline": pipe,
-             "timing_floor_ms": floor,
+             "scaling": scaling, "timing_floor_ms": floor,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))
     print(json.dumps(line))

@@ -11,8 +11,9 @@ bench's loop-closing engine, under the bench's names.
 The sequence functions draw through the port's ``sim/`` and give the JAX
 package's arrays bit for bit (``tests/test_torch_feeds_scripts.py``).
 Cached sequences live under ``build/feeds/`` (the bench caches under
-``out/``), one file per sequence and length. Only these functions moved here:
-the bench's timing, metrics and ``main`` are not ported.
+``out/``), one file per sequence and length. ``_fixes_from_data`` turns a
+sequence's GPS positions into the engine's fixes. Only these functions moved
+here: the bench's timing, metrics and ``main`` are not ported.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ RAW_PTS = 32768  # ~HDL-64 after point_filter_num=4
 IMU_CAP = 32
 PIPE_SCANS = 150  # the loop-closing figure-8 feed
 CORR_SCANS = 400  # the GPS corridor
+GPS_ANCHOR = (22.3193, 114.1694, 10.0)  # lat, lon, alt of the sim world's origin
 
 
 def build_sequence(n_scans: int = N_SCANS + N_WARM) -> dict:
@@ -304,6 +306,29 @@ def _run_pipeline(engine, feed, gps_fixes=None, deferred: bool = False) -> float
     engine.finish()
     sync(engine)
     return time.perf_counter() - t0
+
+
+def _fixes_from_data(data, degrade_middle: bool = False, good_cov=(0.25, 0.25, 1.0)) -> list:
+    """The sequence's world-frame GPS positions as ``runtime.GpsFix``
+    records (``bench.py: _fixes_from_data``): each goes through WGS84
+    geodesy from the bench's anchor (float32, as in the engine), so the
+    engine's ``LocalCartesian`` path is exercised. With ``degrade_middle``
+    the middle third of the fixes gets the covariance (9, 9, 16) m^2, the
+    rest ``good_cov``."""
+    from ..core.geodesy import LocalCartesian
+    from ..runtime import GpsFix
+
+    lc = LocalCartesian.from_origin(*GPS_ANCHOR)
+    ts = data["gps_t"]
+    lat, lon, alt = (t.numpy() for t in lc.reverse(
+        torch.from_numpy(np.asarray(data["gps_xyz"], np.float32))))
+    n = len(ts)
+    fixes = []
+    for i in range(n):
+        bad = degrade_middle and (n // 3 <= i < 2 * n // 3)
+        fixes.append(GpsFix(stamp=float(ts[i]), lat=float(lat[i]), lon=float(lon[i]),
+                            alt=float(alt[i]), cov_xyz=(9.0, 9.0, 16.0) if bad else good_cov))
+    return fixes
 
 
 def _init_engine_at(engine, data, jitter: float = 0.0) -> None:

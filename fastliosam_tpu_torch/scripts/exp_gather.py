@@ -24,7 +24,9 @@ lane-major row gather (``gather_rows(..., lane_major=True)`` of an (8, 2^19,
 10) float32 table at (8, 8192) int64 slots) against ``torch.gather`` of the
 same rows, timed in turns (kernel, library, library, kernel, ...) over
 ``--reps`` fresh slot sets each, so that a drift of the card's clock falls
-on both alike.
+on both alike; then the plain version once over the same sets, and the
+bound: the mean bytes a call must move (``gather_cuda.hbm_bytes``) over the
+HBM rate.
 
 ``--xla`` runs the XLA parts of the two JAX scripts instead (:func:`run_xla`),
 on the same tables and index draws: ``exp_c_onehot_mxu``
@@ -184,6 +186,12 @@ def lane_gather_turns(device=None, reps: int = 200, turns: int = 4, lanes: int =
                                                    [(i,) for i in wide]))
     rec["kernel_mean_ms"] = float(np.mean(rec["kernel_ms"]))
     rec["library_mean_ms"] = float(np.mean(rec["library_ms"]))
+    rec["plain_ms"] = device_ms(
+        lambda s: gather_cuda.gather_rows_ref(table, s, lane_major=True), [(s,) for s in slots])
+    # the bytes each call must move, over this run's slot sets
+    nbytes = np.mean([sum(gather_cuda.hbm_bytes(lane, d, c) for lane in s.cpu().numpy())
+                      for s in slots])
+    rec["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     rec["faster"] = "kernel" if rec["kernel_mean_ms"] < rec["library_mean_ms"] else "library"
     return rec
 

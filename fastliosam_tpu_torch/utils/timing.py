@@ -80,13 +80,15 @@ class StageTimer:
 def torch_trace(log_dir: str, device=None):
     """Capture a ``torch.profiler`` trace around a block and write it as
     ``log_dir/trace.json`` (Chrome trace format: chrome://tracing or
-    Perfetto). Host operations are always traced; CUDA activity too when
-    ``device`` is a CUDA device (``None`` means ``cuda`` when there is
-    one). Yields the profiler."""
+    Perfetto). Host operations are always traced; CUDA activity too on a
+    CUDA ``device``. ``None`` means ``cuda`` and raises without CUDA, as
+    every entry point does; ``device="cpu"`` traces the host only. Yields
+    the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = torch.device(device if device is not None
-                       else "cuda" if torch.cuda.is_available() else "cpu")
+    from .device import resolve_device
+
+    dev = resolve_device(device)
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)

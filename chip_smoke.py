@@ -27,12 +27,24 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      (where one exists), and its bound; then the gather experiment entry
      point (``fastliosam_tpu_torch.scripts.exp_gather``), the path of
      ``take_along_axis``, with its random-read ceiling probe; the row
-     gather (``gather_rows``), the association kernel (``merged_moments``,
-     merged3 and merged2 pools), the map insert's kernel (``insert_claim``)
-     and the cached-plane query (``query_cached``) are checked once the
-     figure-8 feed is made: the gather on the loop closure's plane-refresh
-     reads of submaps around the engine's keyframes after 30 scans and on
-     the point-to-plane ICP's row reads of those submaps, the
+     gather (``gather_rows``), the plane refresh (``refresh_planes``), the
+     point-to-plane normal equations (``p2pl_normal_eq``), the association
+     kernel (``merged_moments``, merged3 and merged2 pools), the map
+     insert's kernel (``insert_claim``) and the cached-plane query
+     (``query_cached``) are checked once the figure-8 feed is made: the
+     gather on the plane-refresh reads of submaps around the engine's
+     keyframes after 30 scans and on the point-to-plane ICP's row reads of
+     those submaps (the engine reads that now live in the next two); the plane
+     refresh on those submaps' 16,384 slots into 2^14 rows and on 8192
+     points a scan inserted into the engine's 2^19-slot map (the cached
+     mode), rows it did not touch bit for bit, the touched ones within
+     ``plane_fit_cuda.TOLERANCE`` (the share bit for bit printed), with
+     ``torch.linalg.eigh`` of the same covariances as its yardstick ("eigh
+     only"); the point-to-plane kernels on the ICP's inputs of those
+     submaps, untrimmed and at the bench's trim, G and b within
+     ``p2pl_cuda.TOLERANCE`` of their largest entries, and the whole
+     ``icp_align_p2pl`` within 1e-5 m / rad of its run on the plain
+     versions and replayed bit for bit; the
      association and the insert on the engine's own 2^19-slot map after 20
      scans (the association also in the merged stencil at 4 probes and the
      insert at 4 rounds, run_slam's map configuration; the insert also on
@@ -74,9 +86,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      scans 300-400 bit for bit with the engine that saved it;
      ``MapLocalizer`` on the exported bundle (global init from a pose
      perturbed by 1 m and 5 degrees, 200 scans, every step matching
-     points); and the NN, insert and row gather against their plain
-     versions at the localizer's shapes (8192 x 2^19, 65,536 points, (2^19,
-     10|3) x 65,536), printed under ``at_localizer_shape``;
+     points); and the NN, insert and plane refresh against their plain
+     versions at the localizer's shapes (8192 x 2^19, 65,536 points, 65,536
+     slots into 2^19 rows), printed under ``at_localizer_shape``;
   9. bag phase, the ROS-bag entry point through the port's CLI
      (``run_slam.run``, the body of ``run_slam.main``): the figure-8
      world and path of phases 4-7, started from rest, rendered at Ouster
@@ -108,8 +120,8 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      window over the first 4 scans (the largest difference over the window
      printed); ``merged_moments`` and ``insert_claim`` launched as many
      times a step at 8 lanes as at 1; and a cached-mode batch (8 lanes x
-     20 scans, ATE gated as above) that launches ``query_cached``, ``gather_rows``
-     and ``insert_claim``. Printed: lane-scans/s, peak device memory. Then
+     20 scans, ATE gated as above) that launches ``query_cached``,
+     ``refresh_planes`` and ``insert_claim``. Printed: lane-scans/s, peak device memory. Then
      the map kernels at the lane shapes, on the rollout's 8 maps: each bit
      for bit with its lane-batched plain version and, lane by lane, with
      the unbatched kernel on that lane's table alone, timed beside the
@@ -117,7 +129,8 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      x 2 probes and a ragged 3 x 5000; ``insert_claim`` 8 x 8192 and 32 x
      8192 points, 2 rounds, one cooperative launch each; ``query_cached``
      8 x 8192; ``gather_rows`` of (8, 2^19, 10) rows at 8 x 8192 slots,
-     beside ``torch.gather`` of the same rows), printed under ``at_lanes``
+     beside ``torch.gather`` of the same rows; ``refresh_planes`` of the
+     cached batch, 8 x 8192 slots into 8 x 2^19 rows), printed under ``at_lanes``
      in the kernels line;
  11. mesh phase, mesh mode over ``torch.distributed`` (``parallel``): the
      parent has built every kernel; 4 ranks started with ``spawn`` load
@@ -188,9 +201,12 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      (the engines' 128 and 256 and the JAX script's 512-4096), dense and
      PCG, one timed solve each. Gates: every stage's outputs finite; the
      association stages launch ``merged_moments``, the insert stages
-     ``insert_claim``, the gather stages ``gather_rows`` (``launches_by_path``
-     ``measure_<script>``); at every size both solvers' costs finite and
-     not above the starting cost (their relative gap printed), no error;
+     ``insert_claim``, the gather stages ``gather_rows``, ``profile_step``'s
+     insert ``refresh_planes`` (``launches_by_path`` ``measure_<script>``);
+     no synchronizing call from ``core/eigh3.py`` and fewer than 6 syncs
+     an iteration in ``profile_step2``'s step (its e_x fallback made
+     6.04); at every size both solvers' costs finite and not above the
+     starting cost (their relative gap printed), no error;
  14. pipeline phase, after phase 12 in this process while the machine is
      quiet (its scans/s are host-clock readings): the scripts that take
      their feeds and engines from ``eval/feeds.py`` (the port of
@@ -248,21 +264,24 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      memory), not scaling.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
-neighbours and the row gather (the loop closure's plane refresh) on the
+neighbours and the plane refresh (the loop closure's surfel map) on the
 loop-closing phases 4 and 5, the association and the insert on 4-6,
 all four on the KITTI long run and the localizer, take_along_axis on the
-experiment entry point; in phase 7 the cached query, the insert, the row
-gather and the NN on the cached run and the association, the insert and
-the NN on the merged2 run; the association, the insert, the row gather
-and the NN on the bag run of phase 9; the association and the insert on
-the batched rollout of phase 10, the cached query, the row gather and the
-insert on its cached-mode batch; the k-NN and the neighbour-voxel
+experiment entry point; in phase 7 the cached query, the insert, the
+plane refresh, the point-to-plane normal equations and the NN on the
+cached run and the association, the insert and the NN on the merged2
+run; the association, the insert, the plane refresh and the NN on the bag
+run of phase 9; the association and the insert on the batched rollout of
+phase 10, the cached query, the plane refresh and the insert on its
+cached-mode batch; the row gather on no engine phase (4-11, 14's
+variants: its engine reads live in the plane refresh and the
+point-to-plane kernels); the k-NN and the neighbour-voxel
 kernel on the postprocess path of phase 12; the association, the insert
 and the row gather on the stages of phase 13 that run them; the NN, the
-row gather, the association and the insert on phase 14's full variants;
+plane refresh, the association and the insert on phase 14's full variants;
 the kernels of phase 15's paths as listed there). Phases 4-6
-and 9 report the insert's, the association's and the row gather's
-launches per scan, and device operations per scan over a window traced
+and 9 report the insert's, the association's, the plane refresh's and
+the row gather's launches per scan, and device operations per scan over a window traced
 with ``torch.profiler`` (the last 15 scans of the replay in 4 and 5, the
 last 10 of the GPS run in 6, the last 30 of the replay in 9;
 ``engine.finish()`` included). Every phase prints its wall seconds on a
@@ -460,12 +479,12 @@ def check_nn_rank_shape(dev, seed: int, n: int = 4096, m: int = 16384):
 
 def check_gather(dev, seed: int, plane_sets, surfel_cfg):
     """The row gather against its plain version, bit for bit, at the shapes
-    the main path gives it: the loop closure's plane refresh
-    (``map/voxel_hash.py: _fit_planes`` on the throwaway map of
-    ``loop/closure.py: _dst_surfel_map``), which reads the (2^14, 10)
-    moments and the (2^14, 3) int32 voxel coordinates at the 16,384 int64
-    slots of the submap's insert (``plane_sets``, one set per submap); the
-    point-to-plane ICP's row reads (``loop/icp.py: icp_align_p2pl``), which
+    of the engine reads that ``refresh_planes`` and ``p2pl_normal_eq`` now
+    make in their own kernels: the loop closure's plane refresh (on the
+    throwaway map of ``loop/closure.py: _dst_surfel_map``), which reads the
+    (2^14, 10) moments and the (2^14, 3) int32 voxel coordinates at the
+    16,384 int64 slots of the submap's insert (``plane_sets``, one set per
+    submap); the point-to-plane ICP's row reads, which
     read the submap (16,384, 3), its normals from ``query_planes`` on that
     surfel map (``surfel_cfg``) and their 1-D int32 valid flags at the
     int32 nearest-neighbour indices of a copy of the submap shifted by
@@ -540,6 +559,246 @@ def check_gather(dev, seed: int, plane_sets, surfel_cfg):
     return main, records
 
 
+EIGH_ROWS = 32768  # the refresh's yardstick: eigh of at most this many covariances
+
+
+def check_refresh_planes(dev, label: str, sets, cfg, floor_ms: float, repeat: int = 1) -> dict:
+    """The plane refresh kernel against its plain version on ``sets`` (each
+    ``(moments, coords, slots, normal, d, plane_valid)`` at one of the main
+    path's shapes, fresh slots per set): every set compared
+    (``plane_fit_cuda.compare``), the kernel twice on the first set bit for bit,
+    lane-major sets also lane by lane against the unbatched kernel, bit for
+    bit; then timed over the sets (``repeat`` times over) beside the plain version, the launch
+    floor, its byte bound (``plane_fit_cuda.hbm_bytes``) and, as the
+    yardstick, ``torch.linalg.eigh`` of the same float32 covariances
+    ("eigh only": no PyTorch call reads the rows, fits and writes the
+    planes). Returns the record."""
+    import torch
+
+    from fastliosam_tpu_torch.ops import plane_fit_cuda
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    def same(xs, ys):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(xs, ys))
+
+    tail = (cfg.voxel_size, cfg.min_points, cfg.plane_var_thresh)
+    moments = sets[0][0]
+    lm = moments.dim() == 3
+    lanes, cap = (moments.shape[0] if lm else 1), moments.shape[-2]
+    diffs = []
+    for args in sets:
+        got = plane_fit_cuda.refresh_planes_cuda(*args, *tail)
+        want = plane_fit_cuda.refresh_planes_ref(*args, *tail)
+        torch.cuda.synchronize()
+        diffs.append(plane_fit_cuda.compare(got, want, *args[:3], cfg.voxel_size,
+                                            cfg.plane_var_thresh))
+        if lm:
+            for b in range(lanes):
+                one = plane_fit_cuda.refresh_planes_cuda(*(t[b] for t in args), *tail)
+                if not same((x[b] for x in got), one):
+                    raise AssertionError(f"refresh_planes {label}: lane {b} differs from the "
+                                         "unbatched kernel on its table")
+    first = plane_fit_cuda.refresh_planes_cuda(*sets[0], *tail)
+    second = plane_fit_cuda.refresh_planes_cuda(*sets[0], *tail)
+    torch.cuda.synchronize()
+    if not same(first, second):
+        raise AssertionError(f"refresh_planes {label}: two launches on the same inputs differ")
+    bad = [d for d in diffs if not d["ok"]]
+    if bad:
+        raise AssertionError(f"refresh_planes {label}: kernel and plain version differ beyond "
+                             f"plane_fit_cuda.TOLERANCE: {bad[0]}")
+    ms = device_ms(lambda *a: plane_fit_cuda.refresh_planes_cuda(*a, *tail), sets * repeat)
+    plain_ms = device_ms(lambda *a: plane_fit_cuda.refresh_planes_ref(*a, *tail), sets * repeat)
+    # the yardstick: eigh of the covariances of the voxels the refresh fits
+    # (each touched row once; cuSOLVER's batched eigh refuses a batch of
+    # 65,536, so at most EIGH_ROWS of them)
+    covs = []
+    for mo, _, sl, *_ in sets:
+        flat = mo.reshape(-1, 10)
+        live = sl.reshape(lanes, -1)
+        live = (live + torch.arange(lanes, device=sl.device)[:, None] * cap)[live < cap]
+        rows = flat[live.unique()[:EIGH_ROWS]]
+        c = rows[:, 0].clamp(min=1.0)
+        mean = rows[:, 1:4] / c[:, None]
+        covs.append((plane_fit_cuda.unpack_sym(rows[:, 4:10]) / c[:, None, None]
+                     - mean[:, :, None] * mean[:, None, :],))
+    library_ms = device_ms(torch.linalg.eigh, covs * repeat)
+    nbytes = float(np.mean([plane_fit_cuda.hbm_bytes(a[2].cpu().numpy(), cap, lanes)
+                            for a in sets]))
+    rows = sum(d["rows"] for d in diffs)
+    same = sum(d["rows_bit_for_bit"] for d in diffs)
+    worst = {k: max(d[k] for d in diffs) for k in ("max_normal_err", "max_d_err",
+                                                   "max_one_minus_dot")}
+    rec = {"shape": label, "max_abs_err": max(worst["max_normal_err"], worst["max_d_err"]),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": library_ms,
+           "library_note": "eigh only: torch.linalg.eigh of the touched voxels' float32 "
+                           "covariances", "library_rows": int(np.mean([c.shape[0]
+                                                                    for (c,) in covs])),
+           "timing_floor_ms": floor_ms, "sets": len(sets), "rows": rows,
+           "rows_bit_for_bit_share": same / max(rows, 1),
+           "sign_flips": sum(d["sign_flips"] for d in diffs),
+           "valid_differs": sum(d["valid_differs"] for d in diffs), **worst, "bytes": nbytes}
+    print(f"  refresh_planes {label}, {len(sets)} sets: within tolerance, "
+          f"{rec['rows_bit_for_bit_share']:.2%} of {rows} touched rows bit for bit "
+          f"({rec['sign_flips']} sign flips, {rec['valid_differs']} plane_valid differ; max "
+          f"|dn| {worst['max_normal_err']:.3g}, |dd| {worst['max_d_err']:.3g} m, "
+          f"1 - |n.n_ref| {worst['max_one_minus_dot']:.3g}), kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, eigh only {library_ms:.4f} ms ({rec['library_rows']} covariances), "
+          f"bound {rec['bound_ms']:.5f} ms "
+          f"({nbytes:.0f} HBM bytes), floor {floor_ms:.4f} ms")
+    return rec
+
+
+def check_plane_refresh(dev, feed, fig8, floor_ms: float, n_map_scans: int = 20,
+                        reps: int = 10) -> dict:
+    """The plane refresh kernel at the engine's two shapes: the loop
+    closure's (``loop/closure.py: _dst_surfel_map``: each plane-refresh
+    submap's 16,384 slots into its fresh 2^14-slot map) and the cached
+    query mode's (8192 points of each of the engine map's last ``reps``
+    scans inserted into the 2^19-slot figure-8 map with its planes fitted,
+    as ``odom/pipeline.py`` refreshes it each scan). Returns the loop
+    closure's record (the kernels line) with the cached mode's under
+    ``at_cached_mode``."""
+    import torch
+
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import insert_cuda
+
+    m, cfg, traj, plane_sets, surfel_cfg, _ = fig8
+    empty = vh.make_map(surfel_cfg, dev)
+    loop_sets = [(mom, crd, sl, empty.normal, empty.d, empty.plane_valid)
+                 for mom, crd, sl, *_ in plane_sets]
+    rec = check_refresh_planes(dev, f"(2^{surfel_cfg.capacity.bit_length() - 1}, 10) x "
+                               f"{plane_sets[0][2].shape[0]} int64 slots (the loop closure's "
+                               "surfel map)", loop_sets, surfel_cfg, floor_ms)
+    cm = _cached_map(m, cfg)
+    rounds = max(cfg.insert_probes, cfg.claim_probes)
+    cached_sets = []
+    for xyz in _scan_queries(dev, feed, traj, range(n_map_scans - reps, n_map_scans),
+                             seed=n_map_scans + 2):
+        ones = torch.ones(xyz.shape[0], dtype=torch.bool, device=dev)
+        sl = insert_cuda.insert_claim_cuda(cm.fp, cm.coords, cm.moments, xyz, ones,
+                                           cfg.voxel_size, rounds, cfg.max_points_per_voxel)[2]
+        m2, _ = vh.insert(cm, cfg, xyz, ones, refresh_planes=False)
+        cached_sets.append((m2.moments, m2.coords, sl, cm.normal, cm.d, cm.plane_valid))
+    rec["at_cached_mode"] = check_refresh_planes(
+        dev, f"(2^{cfg.capacity.bit_length() - 1}, 10) x 8192 int64 slots (the cached "
+        "mode's insert)", cached_sets, cfg, floor_ms)
+    return rec
+
+
+P2PL_ICP_SETS = 3  # the whole ICP runs three times a set: on the first three sets
+
+
+def check_p2pl(dev, fig8, floor_ms: float) -> dict:
+    """The point-to-plane ICP kernels against their plain versions on the
+    loop closure's p2pl inputs (``check_gather``'s sets: each submap
+    (16,384 points) against itself shifted by (0.2, 0.2, 0) m, its normals
+    and valid flags from its surfel map, the NN kernel's neighbours, the
+    bench's loop ``max_corr_dist``): ``normal_eq`` untrimmed and at the
+    bench's trim (its threshold from ``corr_keys``, bit for bit with its
+    plain version), G and b within ``p2pl_cuda.TOLERANCE`` of their
+    largest entries, two launches bit for bit; then ``icp_align_p2pl`` on
+    the first ``P2PL_ICP_SETS`` sets with the kernels and with their plain
+    versions swapped in,
+    final T within 1e-5 m / 1e-5 rad, and replayed bit for bit. Timed over
+    the sets beside the plain version, the launch floor and its byte
+    bound. Returns the record (the kernels line)."""
+    import torch
+
+    from fastliosam_tpu_torch.loop import icp
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import nn_cuda, p2pl_cuda
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    _, _, _, plane_sets, surfel_cfg, lc = fig8
+    max_corr = lc.radius * lc.max_corr_factor
+    max_d2 = max_corr * max_corr
+    shift = torch.tensor([0.2, 0.2, 0.0], device=dev)
+    sets, thrs, err, rel = [], [], 0.0, 0.0
+    for *_, sm, dst, dmask in plane_sets:
+        nrm, _, nvalid = vh.query_planes(sm, surfel_cfg, dst, dmask)
+        ps = (dst + shift).contiguous()
+        idx, d2 = nn_cuda.nearest_neighbors(ps, dst, dmask)
+        sets.append((ps, idx, d2, dmask, dst, nrm.contiguous(), nvalid.contiguous()))
+    n = sets[0][0].shape[0]
+    for s in sets:
+        ps, idx, d2, mask, dst, nrm, nvalid = s
+        ck, kk = p2pl_cuda.corr_keys_cuda(idx, d2, mask, nvalid, max_d2)
+        cp, kp = p2pl_cuda.corr_keys_ref(idx, d2, mask, nvalid, max_d2)
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, cp) and torch.equal(kk.view(torch.int32), kp.view(torch.int32))):
+            raise AssertionError("p2pl corr_keys: kernel and plain version differ")
+        thr = icp._trim_threshold(cp, kp, n, lc.trim_fraction)
+        thrs.append(thr)
+        for t in (None, thr):
+            G, b = p2pl_cuda.normal_eq_cuda(*s, max_d2, t)
+            G2, b2 = p2pl_cuda.normal_eq_cuda(*s, max_d2, t)
+            Gp, bp = p2pl_cuda.normal_eq_ref(*s, max_d2, t)
+            torch.cuda.synchronize()
+            if not (torch.equal(G, G2) and torch.equal(b, b2)):
+                raise AssertionError("p2pl normal_eq: two launches on the same inputs differ")
+            gm, bm = float(Gp.abs().max()), float(bp.abs().max())
+            e_g, e_b = float((G - Gp).abs().max()), float((b - bp).abs().max())
+            err = max(err, e_g, e_b)
+            rel = max(rel, e_g / max(gm, 1e-30), e_b / max(bm, 1e-30))
+    if rel > p2pl_cuda.TOLERANCE:
+        raise AssertionError(f"p2pl normal_eq: kernel and plain version differ by {rel:.3g} of "
+                             f"their largest entries (tolerance {p2pl_cuda.TOLERANCE})")
+
+    # the whole ICP: the kernels, their replay, and the plain versions swapped in
+    kw = dict(max_iterations=lc.max_iterations, max_corr_dist=max_corr,
+              trim_fraction=lc.trim_fraction, convergence_eps=lc.convergence_eps)
+    t_err, r_err = 0.0, 0.0
+    for ps, _, _, mask, dst, nrm, nvalid in sets[:P2PL_ICP_SETS]:
+        args = (ps, mask, dst, mask, nrm, nvalid)
+        T1 = icp.icp_align_p2pl(*args, **kw)[0]
+        T2 = icp.icp_align_p2pl(*args, **kw)[0]
+        swapped = (p2pl_cuda.normal_eq, p2pl_cuda.corr_keys)
+        p2pl_cuda.normal_eq, p2pl_cuda.corr_keys = p2pl_cuda.normal_eq_ref, p2pl_cuda.corr_keys_ref
+        try:
+            Tp = icp.icp_align_p2pl(*args, **kw)[0]
+        finally:
+            p2pl_cuda.normal_eq, p2pl_cuda.corr_keys = swapped
+        if not torch.equal(T1, T2):
+            raise AssertionError("icp_align_p2pl on the kernels: the replay differs")
+        a, b = T1.double().cpu().numpy(), Tp.double().cpu().numpy()
+        t_err = max(t_err, float(np.abs(a[:3, 3] - b[:3, 3]).max()))
+        r_err = max(r_err, float(2 * np.arcsin(min(1.0, np.linalg.norm(a[:3, :3] - b[:3, :3])
+                                                   / (2 * np.sqrt(2))))))
+    if t_err > 1e-5 or r_err > 1e-5:
+        raise AssertionError(f"icp_align_p2pl: kernels and plain versions end {t_err:.3g} m / "
+                             f"{r_err:.3g} rad apart (gate 1e-5)")
+
+    ms = device_ms(lambda *s: p2pl_cuda.normal_eq_cuda(*s, max_d2), sets)
+    plain_ms = device_ms(lambda *s: p2pl_cuda.normal_eq_ref(*s, max_d2), sets)
+    trim_sets = [s + (t,) for s, t in zip(sets, thrs)]
+    ms_trim = device_ms(lambda *s: p2pl_cuda.normal_eq_cuda(*s[:-1], max_d2, s[-1]), trim_sets)
+    keys_ms = device_ms(lambda ps, idx, d2, mask, dst, nrm, nv: p2pl_cuda.corr_keys_cuda(
+        idx, d2, mask, nv, max_d2), sets)
+    nbytes = []
+    for ps, idx, d2, mask, dst, nrm, nvalid in sets:
+        live = (mask & (d2 < max_d2)).cpu().numpy()
+        w = p2pl_cuda.corr_keys_ref(idx, d2, mask, nvalid, max_d2)[0].cpu().numpy()
+        nbytes.append(p2pl_cuda.hbm_bytes(idx.cpu().numpy(), live, w, dst.shape[0]))
+    nbytes = float(np.mean(nbytes))
+    rec = {"shape": f"{n} points against the {sets[0][4].shape[0]}-point submap "
+                    f"(max_corr_dist {max_corr} m)",
+           "max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+           "library_note": "none: no PyTorch call reads the rows and forms the normal "
+                           "equations", "ms_trimmed": ms_trim, "corr_keys_ms": keys_ms,
+           "timing_floor_ms": floor_ms, "sets": len(sets), "bytes": nbytes,
+           "icp_T_err_m": t_err, "icp_R_err_rad": r_err}
+    print(f"  p2pl_normal_eq {rec['shape']}, {len(sets)} sets: G and b within {rel:.3g} of "
+          f"their largest entries (max |err| {err:.3g}); ICP's T {t_err:.3g} m / {r_err:.3g} "
+          f"rad from the plain versions', its replay bit for bit; kernel {ms:.4f} ms (trimmed "
+          f"{ms_trim:.4f}, corr_keys {keys_ms:.4f}), plain {plain_ms:.4f} ms, library none, "
+          f"bound {rec['bound_ms']:.5f} ms ({nbytes:.0f} HBM bytes), floor {floor_ms:.4f} ms")
+    return rec
+
+
 def plane_refresh_sets(dev, engine, n_sets: int = 10):
     """The inputs of the loop closure's plane refresh, as
     ``loop/closure.py: _dst_surfel_map`` makes them: the submap
@@ -548,7 +807,8 @@ def plane_refresh_sets(dev, engine, n_sets: int = 10):
     2^14-slot map. Returns ``(moments (2^14, 10), coords (2^14, 3), sl
     (16,384,) int64, map, dst (16,384, 3), mask)`` for each: the tables
     after the insert, the slots it gave, and the refreshed map with the
-    submap, the point-to-plane ICP's normal query; and that map's config."""
+    submap, the point-to-plane ICP's normal query; that map's config; and
+    the engine's loop config."""
     from fastliosam_tpu_torch.loop.closure import _dst_surfel_map, build_submap
     from fastliosam_tpu_torch.map import voxel_hash as vh
     from fastliosam_tpu_torch.ops import insert_cuda
@@ -566,7 +826,7 @@ def plane_refresh_sets(dev, engine, n_sets: int = 10):
             empty.fp, empty.coords, empty.moments, dst, mask, cfg.voxel_size,
             max(cfg.insert_probes, cfg.claim_probes), cfg.max_points_per_voxel)[2]
         out.append((m.moments, m.coords, sl, m, dst, mask))
-    return out, cfg
+    return out, cfg, lc
 
 
 def figure8_map(dev, feed, n_map_scans: int = 20, n_more: int = 10):
@@ -575,7 +835,7 @@ def figure8_map(dev, feed, n_map_scans: int = 20, n_more: int = 10):
     the first ``n_map_scans + n_more`` scans (a second run from
     ``reset()``, which replays the first bit for bit) and the plane-refresh
     inputs of loop-closure submaps around its keyframes then with their
-    surfel maps' config (``plane_refresh_sets``)."""
+    surfel maps' config and the loop config (``plane_refresh_sets``)."""
     from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
 
     engine = make_bench_engine(dev)
@@ -668,16 +928,16 @@ def check_assoc(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
 
 def _cached_map(m, cfg):
     """The map with the cached plane of every occupied voxel fitted, as the
-    cached query mode's insert keeps it (``map/voxel_hash.py:
-    _fit_planes``)."""
+    cached query mode's insert keeps it (``ops/plane_fit_cuda.py:
+    refresh_planes`` at every occupied slot)."""
     import torch
 
-    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import plane_fit_cuda
 
     occ = torch.nonzero(m.fp != 0)[:, 0]
-    nrm, dd, pv = vh._fit_planes(m, cfg, occ)
-    normal, d, plane_valid = m.normal.clone(), m.d.clone(), m.plane_valid.clone()
-    normal[occ], d[occ], plane_valid[occ] = nrm, dd, pv
+    normal, d, plane_valid = plane_fit_cuda.refresh_planes(
+        m.moments, m.coords, occ, m.normal, m.d, m.plane_valid, cfg.voxel_size,
+        cfg.min_points, cfg.plane_var_thresh)
     return m._replace(normal=normal, d=d, plane_valid=plane_valid)
 
 
@@ -701,7 +961,7 @@ def check_query(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     from fastliosam_tpu_torch.ops import query_cuda
     from fastliosam_tpu_torch.utils.timing import device_ms
 
-    m, cfg, traj, plane_sets, surfel_cfg = fig8
+    m, cfg, traj, plane_sets, surfel_cfg, _ = fig8
     mc = _cached_map(m, cfg)
     queries = _scan_queries(dev, feed, traj, range(n_map_scans - reps, n_map_scans),
                             seed=n_map_scans + 1)
@@ -1158,10 +1418,17 @@ def _launch_counts(fn):
 
 def _per_scan(launches, scans) -> dict:
     """The map's kernels per scan: insert_claim (one per insert),
-    merged_moments (one per association) and gather_rows (the plane
-    refresh of the loop closure's throwaway map)."""
+    merged_moments (one per association), refresh_planes (the plane
+    refresh of the loop closure's throwaway map) and gather_rows (0: its
+    engine reads moved into refresh_planes and p2pl_normal_eq)."""
     return {name: launches[name] / scans
-            for name in ("insert_claim", "merged_moments", "gather_rows")}
+            for name in ("insert_claim", "merged_moments", "refresh_planes", "gather_rows")}
+
+
+def _no_gather(launches) -> dict:
+    """The gate that an engine path ran no row gather: its reads there
+    live in the plane refresh and the point-to-plane kernels."""
+    return {"gather_rows not launched": launches["gather_rows"] == 0}
 
 
 def _window_ops(run, top: int = 6) -> float:
@@ -1234,9 +1501,10 @@ def per_scan_phase(dev, feed):
         and bool(np.all(np.isfinite(engine.keyframe_poses()))),
         "n_matched > 500 after scan 2": result["min_matched_after_scan2"] > 500,
         "at least one verification": n_verify >= 1,
-        "nearest_neighbors, gather_rows, merged_moments and insert_claim launched":
-            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments",
+        "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
+            min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
+        **_no_gather(launches),
         "ATE < 0.10 m": ate < 0.10,
         "replay bit-identical": result["replay_bit_identical"],
     })
@@ -1291,9 +1559,10 @@ def chunked_phase(dev, feed, chunk: int = 5):
         "at least one loop": result["loops"] >= 1,
         "<= 1 host read per chunk for odometry + keyframing":
             result["odom_keyframe_reads_per_chunk"] <= 1.0,
-        "nearest_neighbors, gather_rows, merged_moments and insert_claim launched":
-            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments",
+        "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
+            min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
+        **_no_gather(launches),
         "replay bit-identical": result["replay_bit_identical"],
     })
     return result
@@ -1303,7 +1572,8 @@ def chunked_phase(dev, feed, chunk: int = 5):
 # the bench's pipeline, its path, and the kernels that path must launch
 MODES = {
     "cached_p2pl": (dict(query_mode="cached"), dict(icp_method="p2pl"), "per_scan",
-                    ("query_cached", "insert_claim", "gather_rows", "nearest_neighbors")),
+                    ("query_cached", "insert_claim", "refresh_planes", "p2pl_normal_eq",
+                     "nearest_neighbors")),
     "merged2_multistart": (dict(query_mode="merged2"),
                            dict(icp_multistart=5, multistart_step=4.0, multistart_iters=12),
                            "chunked", ("merged_moments", "insert_claim", "nearest_neighbors")),
@@ -1370,6 +1640,7 @@ def modes_phase(dev, feed, chunk: int = 5) -> dict:
             "at least one verification": result["verifications"] >= 1,
             "replay bit-identical": result["replay_bit_identical"],
             ", ".join(kernels) + " launched": min(launches[k] for k in kernels) > 0,
+            **_no_gather(launches),
             "ATE < 0.10 m": result["ate_m"] < 0.10,
         })
         out[name] = result
@@ -1415,6 +1686,7 @@ def gps_phase(dev, feed, chunk: int = 5):
         "ATE with GPS < 2.0 m": result["ate_gps_on_m"] < 2.0,
         "merged_moments and insert_claim launched":
             launches["merged_moments"] > 0 and launches["insert_claim"] > 0,
+        **_no_gather(launches),
     })
     return result, (engine.keyframe_stamps().astype(np.float64),
                     engine.keyframe_poses()[:, :3, 3].astype(np.float64))
@@ -1501,9 +1773,10 @@ def kitti_longrun_phase(dev, root: str, chunk: int = 5):
         "ATE <= 20 m (regression guard; the 10 m target is unmet (ROADMAP Queue 3 fault 1))":
             out.get("ate_m", np.inf) <= 20.0,
         "at least one verification": result["verifications"] >= 1,
-        "nearest_neighbors, gather_rows, merged_moments and insert_claim launched":
-            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments",
+        "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
+            min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
+        **_no_gather(launches),
     })
     return result, engine
 
@@ -1674,9 +1947,10 @@ def localize_phase(dev, root: str, bundle: str, ref_pose, n_scans: int = 200):
     _fail("localize", {
         "every pose finite": bool(np.all(np.isfinite(poses))),
         "every step matched points": min(matched) > 0,
-        "nearest_neighbors, gather_rows, merged_moments and insert_claim launched":
-            min(launches[k] for k in ("nearest_neighbors", "gather_rows", "merged_moments",
+        "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
+            min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
+        **_no_gather(launches),
     })
     return result, loc
 
@@ -1721,7 +1995,8 @@ def check_localizer_shapes(dev, inp, reps: int = 10) -> dict:
     bound. Returns ``{kernel: record}``."""
     import torch
 
-    from fastliosam_tpu_torch.ops import gather_cuda, insert_cuda, nn_cuda
+    from fastliosam_tpu_torch.map import insert
+    from fastliosam_tpu_torch.ops import insert_cuda, nn_cuda
     from fastliosam_tpu_torch.utils.timing import device_ms
 
     out = {}
@@ -1750,23 +2025,13 @@ def check_localizer_shapes(dev, inp, reps: int = 10) -> dict:
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         "grid_blocks": blocks, "points_per_thread": per_thread,
         "dropped": int(got[4]), "new_voxels": int((got[0] != 0).sum() - (m.fp != 0).sum())}
-    # the plane refresh's reads after that insert, at its slots
-    sl = got[2]
-    for name, table in (("moments", m.moments), ("coords", m.coords)):
-        g = gather_cuda.gather_rows_cuda(table, sl)
-        w = gather_cuda.gather_rows_ref(table, sl)
-        torch.cuda.synchronize()
-        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-            raise AssertionError(f"gather_rows {name} at the localizer's shape: differ")
-        c, d = table.shape
-        clamped = sl.clamp(max=c - 1)
-        nb = gather_cuda.hbm_bytes(sl.cpu().numpy(), d, c)
-        out[f"gather_rows_{name}"] = {
-            "shape": f"({c},{d}) x {sl.shape[0]} int64", "max_abs_err": 0.0,
-            "ms": device_ms(lambda: gather_cuda.gather_rows_cuda(table, sl), [()] * reps),
-            "plain_ms": device_ms(lambda: gather_cuda.gather_rows_ref(table, sl), [()] * reps),
-            "bound_ms": nb / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": device_ms(lambda: torch.index_select(table, 0, clamped), [()] * reps)}
+    # the plane refresh after that insert, at its slots: the moments after
+    # its scatter, the plane tables before it
+    m2, _ = insert(m, cfg, xyz, mask, refresh_planes=False)
+    out["refresh_planes"] = check_refresh_planes(
+        dev, f"(2^{cfg.capacity.bit_length() - 1}, 10) x {xyz.shape[0]} int64 slots (the "
+        "localizer's map build)", [(m2.moments, m2.coords, got[2], m.normal, m.d,
+                                     m.plane_valid)], cfg, launch_floor_ms(1), repeat=reps)
     # the NN: global_init's ICP query against the map's voxel centroids
     src, dst, occ = inp["nn"]
     k_idx, k_d2 = nn_cuda.nearest_neighbors_cuda(src, dst, occ)
@@ -2025,9 +2290,10 @@ def bag_phase(dev, feed_dir: str) -> dict:
         f"ATE < {BAG_ATE_GATE} m": bag["ate_m"] < BAG_ATE_GATE,
         "at least one verification": bag["verifications"] >= 1,
         "replay bit-identical": bag["replay_bit_identical"],
-        "merged_moments, insert_claim, gather_rows and nearest_neighbors launched":
-            min(launches[k] for k in ("merged_moments", "insert_claim", "gather_rows",
+        "merged_moments, insert_claim, refresh_planes and nearest_neighbors launched":
+            min(launches[k] for k in ("merged_moments", "insert_claim", "refresh_planes",
                                       "nearest_neighbors")) > 0,
+        **_no_gather(launches),
     })
 
     argv = ["--dataset", "mulran", "--root", str(d / "mulran"), "--use-gps",
@@ -2276,8 +2542,10 @@ def batched_phase(dev, feed, floor) -> dict:
                                                         launches["insert_claim"]) > 0,
         "merged_moments and insert_claim launch as often a step at 8 lanes as at 1":
             all(v["lanes_8"] == v["lanes_1"] for v in per_step.values()),
-        "cached mode: query_cached, gather_rows and insert_claim launched":
-            min(c_launches[k] for k in ("query_cached", "gather_rows", "insert_claim")) > 0,
+        "cached mode: query_cached, refresh_planes and insert_claim launched":
+            min(c_launches[k] for k in ("query_cached", "refresh_planes", "insert_claim")) > 0,
+        "gather_rows not launched (both batches)":
+            launches["gather_rows"] == 0 and c_launches["gather_rows"] == 0,
         "cached mode: ATE < max(0.10 m, the reference's + 0.01 m) in every lane":
             bool(np.all(c_ate < c_gate)),
     })
@@ -2497,6 +2765,15 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
     out["gather_rows"] = record("gather_rows", f"({lanes}, 2^{c.bit_length() - 1}, 10) moment "
                                 f"rows x ({lanes}, 8192) int64 slots, lane-major", ms, plain_ms,
                                 nbytes, library_ms=library_ms)
+    # the cached batch's plane refresh: each insert's moments after its
+    # scatter at its slots, the maps' fitted planes before it
+    rp_sets = []
+    for (sl,), (xyz, mask) in zip(g_sets, pts):
+        m2, _ = vh.insert(cm, map_cfg, xyz, mask, refresh_planes=False)
+        rp_sets.append((m2.moments, m2.coords, sl, cm.normal, cm.d, cm.plane_valid))
+    out["refresh_planes"] = check_refresh_planes(
+        dev, f"({lanes}, 2^{c.bit_length() - 1}, 10) x ({lanes}, 8192) int64 slots, "
+        "lane-major (the cached batch)", rp_sets, map_cfg, floor["1_blocks"])
     return out
 
 
@@ -2728,6 +3005,8 @@ def mesh_phase(dev, feed_path: str, chunk: int = 5, n_scans: int | None = None,
         "every rank equal to rank 0 and each replay equal, bit for bit": same,
         "nearest_neighbors launched on every rank":
             min(result["nn_launches_per_rank"]) > 0,
+        "gather_rows launched on no rank":
+            all(r["gather_rows"] == 0 for r in result["launches_per_rank"]),
         f"NCCL world size 1 within {MESH_TRAJ_GATE_M} m of the reference":
             nccl_err < MESH_TRAJ_GATE_M and bool(np.all(np.isfinite(o1["first.traj"]))),
     })
@@ -3155,7 +3434,7 @@ ROOFLINE_REPS = 30
 # this + 1 cm
 NOINIT_JAX_ATE_M = 0.153156
 NOINIT_MARGIN_M = 0.01
-PIPE_KERNELS = ("nearest_neighbors", "gather_rows", "merged_moments", "insert_claim")
+PIPE_KERNELS = ("nearest_neighbors", "refresh_planes", "merged_moments", "insert_claim")
 
 
 def pipeline_feeds() -> None:
@@ -3201,6 +3480,8 @@ def pipeline_phase(dev) -> dict:
     print(f"  profile_pipeline attribution (s): {prof['attribution_s']} ({card})")
     checks = {f"{name}: the timed run equals the warm run": rec["replay_equal"]
               for name, rec in v.items()}
+    checks.update({f"{name} launches no gather_rows": rec["launches"]["gather_rows"] == 0
+                   for name, rec in v.items()})
     for name in ("full", "full_deferred"):
         _, loops, solves = v[name]["kf_loops_solves"]
         checks[f"{name}: a loop and a solve"] = loops >= 1 and solves >= 1
@@ -3306,6 +3587,7 @@ MEASURE_KERNEL_STAGES = {
     "insert_claim": {"profile_step2": ("step", "insert"), "profile_step": ("step", "insert"),
                      "profile_insert": ("insert",)},
     "gather_rows": {"profile_insert": ("gather", "gather_int")},
+    "refresh_planes": {"profile_step": ("insert",)},
 }
 
 
@@ -3348,6 +3630,17 @@ def measurement_phase(dev, out_dir: Path) -> dict:
                 checks[f"{name} {st} launches {kernel}"] = (
                     stages[name][st]["launches"].get(kernel, 0) > 0)
     _fail("measurement phase, kernels", checks)
+    # the iEKF's e_x fallback (core/eigh3.py) builds its vector on the card:
+    # no synchronizing call of any stage comes from there any more
+    sites = {site: r["sync_sites"][site] for name in ("profile_step2", "profile_step")
+             for r in stages[name].values() for site in (r["sync_sites"] or {})}
+    step = stages["profile_step2"]["step"]
+    print(f"  host syncs: profile_step2 step {step['syncs']} an iteration, iekf "
+          f"{stages['profile_step2']['iekf']['syncs']}; sync sites of every stage {sites}")
+    _fail("measurement phase, host syncs", {
+        "no synchronizing call from core/eigh3.py": not any("eigh3.py" in k for k in sites),
+        "profile_step2 step: fewer than 6 syncs an iteration": step["syncs"] < 6.0,
+    })
 
     path = out_dir / "bench_pgo_crossover.json"
     rc, launches["measure_crossover"] = _launch_counts(lambda: bench_pgo_crossover.main(
@@ -3640,9 +3933,13 @@ def main(argv=None) -> int:
 
         with geometry_precision():
             t0 = time.perf_counter()
-            print("kernel phase, row gather, association and insert (on the figure-8 map):")
+            print("kernel phase, row gather, plane refresh, point-to-plane normal equations, "
+                  "association and insert (on the figure-8 map):")
             fig8_map = figure8_map(dev, fig8)
-            kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, *fig8_map[3:])
+            kernels["gather_rows"], gather_cases = check_gather(dev, args.seed, *fig8_map[3:5])
+            kernels["refresh_planes"] = check_plane_refresh(dev, fig8, fig8_map,
+                                                            floor["1_blocks"])
+            kernels["p2pl_normal_eq"] = check_p2pl(dev, fig8_map, floor["1_blocks"])
             kernels["merged_moments"] = check_assoc(dev, fig8, fig8_map)
             kernels["insert_claim"] = check_insert(dev, fig8, fig8_map)
             kernels["query_cached"] = check_query(dev, fig8, fig8_map)
@@ -3729,7 +4026,7 @@ def main(argv=None) -> int:
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
-                    "gather_rows": {k: shapes[f"gather_rows_{k}"] for k in ("moments", "coords")}}
+                    "refresh_planes": shapes["refresh_planes"]}
     line = {"kernels": [], "timing_floor_ms": floor}
     for mod in KERNEL_MODULES:
         rec = dict(mod.KERNEL)

@@ -49,9 +49,11 @@ def _eigvec(A, lam, other1, other2):
     k = torch.argmax(norms, dim=-1)
     col = torch.gather(M, -1, k[..., None, None].expand(*M.shape[:-1], 1))[..., 0]
     n = torch.linalg.vector_norm(col, dim=-1, keepdim=True)
-    # repeated eigenvalues: fall back to e_x (callers gate on planarity)
+    # repeated eigenvalues: fall back to e_x (callers gate on planarity);
+    # a fill, not ``fallback[..., 0] = 1.0``, which on an unbatched (3,)
+    # copies a 0-dim value through the host and so syncs the stream
     fallback = torch.zeros_like(col)
-    fallback[..., 0] = 1.0
+    fallback.narrow(-1, 0, 1).fill_(1.0)
     safe = n[..., 0] > 1e-20
     return torch.where(safe[..., None], col / torch.clamp(n, min=_EPS), fallback)
 

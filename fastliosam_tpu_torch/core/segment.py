@@ -82,6 +82,25 @@ def lane_rows(index, rows: int):
     return index + lane * rows
 
 
+def with_drop_row(t, lane_major: bool = False):
+    """``t`` plus one zero row at index ``len(t)`` that takes the writes the
+    JAX package drops (``mode="drop"`` with an out-of-bounds index);
+    lane-major, one such row after each lane's table and the lanes
+    flattened: lane b's row i is row ``b * (C + 1) + i``."""
+    if not lane_major:
+        return torch.cat([t, torch.zeros_like(t[:1])])
+    return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1).reshape(
+        (-1,) + tuple(t.shape[2:]))
+
+
+def without_drop_row(t, cap: int, lane_major: bool = False):
+    """The table of :func:`with_drop_row`'s rows ``t``, the drop rows
+    left out (contiguous, as the kernels take a map's fields)."""
+    if not lane_major:
+        return t[:cap]
+    return t.reshape((-1, cap + 1) + tuple(t.shape[1:]))[:, :cap].contiguous()
+
+
 def lane_plan(index, rows: int, dead=None) -> SegmentPlan:
     """:func:`segment_plan` of the lane-local rows ``index (B, n)`` of a
     lane-major table with ``rows`` rows a lane (lane b's drop row is its own

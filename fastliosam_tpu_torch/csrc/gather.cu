@@ -4,11 +4,13 @@
 // exp_a_int_indexing (pallas_call at line 61) and exp_b_fori_dynamic_slice
 // (pallas_call at lines 92 and 116): both compute table[idx] for a
 // (C, 16) float32 table and 8192 int32 indices, the first as vector
-// indexing, the second as one dynamic_slice per row. On the engine path the
-// same kernel is the plane refresh's read of the moment table (C, 10) and
-// the voxel coordinates (C, 3) (the loop closure's throwaway map); the
-// association's reads are fused into csrc/assoc.cu, the insert's into
-// csrc/insert.cu.
+// indexing, the second as one dynamic_slice per row. The gather experiments
+// (scripts/exp_gather.py, microbench_gather.py, profile_insert.py's gather
+// stages) run it; no engine path does: the engine's reads of the same rows
+// live in the kernels that consume them, the association's in
+// csrc/assoc.cu, the insert's in csrc/insert.cu, the cached query's in
+// csrc/query.cu, the plane refresh's in csrc/plane_fit.cu and the
+// point-to-plane ICP's in csrc/p2pl.cu.
 //
 // Semantics (the JAX rule for table[idx], and the plain version's):
 //   * a negative index wraps once (-1 -> C-1); what is still out of range
@@ -22,7 +24,7 @@
 // contiguous. At 8192 rows that is well under 1 MB, so a call is bound by
 // its launch and the latency of one dependent read (index, then row).
 //
-// Lanes (the batched rollout's plane refresh, eval/batch_eval.py): a
+// Lanes (the lane-major map of the batched rollout, eval/batch_eval.py): a
 // lane-major table (B, C, d) and B blocks of n/B indices; row r belongs to
 // lane b = r / (n/B) and reads lane b's rows only, the index rule applied
 // within the lane. With B = 1 this is the unbatched call: the same launch

@@ -5,8 +5,9 @@ The nearest-neighbour search is the CUDA kernel on the card
 (``ops/nn_cuda.py``) and its plain version on the CPU. The point-to-point
 step is Horn's quaternion method with a shifted power iteration on the 4x4
 N-matrix; the point-to-plane step solves a 6x6 Gauss-Newton system, and
-its reads of the destination rows at the neighbours go through the row
-gather kernel (``ops/gather_cuda.py``). The JAX ``lax.while_loop`` becomes
+its reads of the destination rows at the neighbours, the residuals and
+the two products of the system are one kernel (``ops/p2pl_cuda.py``), two
+with a trim. The JAX ``lax.while_loop`` becomes
 a Python loop that reads the step size back each iteration (one counted
 host sync per iteration).
 """
@@ -16,13 +17,12 @@ import numpy as np
 import torch
 
 from ..core import se3, so3
-from ..ops import nn_cuda
-from ..ops.gather_cuda import gather_rows
+from ..ops import nn_cuda, p2pl_cuda
 from ..ops.nn_cuda import nearest_neighbors_ref as nearest_neighbors  # noqa: F401
 from ..utils.precision import geometry_precision
 from ..utils.sync import host_read
 
-_BIG = 1.0e12
+_BIG = p2pl_cuda.BIG
 
 
 def horn_moments(P, Q, w):
@@ -144,7 +144,8 @@ def icp_align_p2pl(
     dst = dst.contiguous()
     dst_mask = dst_mask.contiguous()
     dst_normals = dst_normals.contiguous()
-    nvalid = dst_nvalid.to(torch.int32)  # the row gather copies 4-byte words
+    nvalid = dst_nvalid.to(torch.bool).contiguous()
+    src_mask = src_mask.contiguous()
     max_d2 = max_corr_dist * max_corr_dist
     ridge = 1e-6 * torch.eye(6, dtype=torch.float32, device=dev)
 
@@ -154,16 +155,13 @@ def icp_align_p2pl(
     def step(T):
         ps = se3.apply(T, src[None])[0]
         nn_idx, nn_d2 = nn(ps)
-        corr = src_mask & (nn_d2 < max_d2) & (gather_rows(nvalid, nn_idx) != 0)
-        w = _trimmed(corr, nn_d2, n, trim_fraction).to(torch.float32)
-        nrm = gather_rows(dst_normals, nn_idx)
-        q = gather_rows(dst, nn_idx)
-        r = torch.sum(nrm * (ps - q), dim=-1)
-        A = torch.cat([torch.linalg.cross(ps, nrm, dim=-1), nrm], dim=-1)  # (N, 6)
-        Aw = A * w[:, None]
-        G = A.T @ Aw + ridge
-        b = Aw.T @ r
-        dx = torch.linalg.solve_ex(G, -b).result  # [dtheta, dt]
+        thr = None
+        if trim_fraction < 1.0:
+            corr, key = p2pl_cuda.corr_keys(nn_idx, nn_d2, src_mask, nvalid, max_d2)
+            thr = _trim_threshold(corr, key, n, trim_fraction)
+        G, b = p2pl_cuda.normal_eq(ps.contiguous(), nn_idx, nn_d2, src_mask, dst,
+                                   dst_normals, nvalid, max_d2, thr)
+        dx = torch.linalg.solve_ex(G + ridge, -b).result  # [dtheta, dt]
         T_new = se3.compose(se3.make(so3.exp(dx[:3]), dx[3:]), T)
         return T_new, torch.linalg.vector_norm(dx)
 
@@ -171,16 +169,23 @@ def icp_align_p2pl(
     return (T,) + _fitness(nn, src, src_mask, T, max_d2)
 
 
+def _trim_threshold(corr, key, n: int, trim_fraction: float):
+    """The 1-element distance threshold of the best ``trim_fraction`` of
+    the correspondences ``corr``, from their sort keys ``key`` (the
+    distances, ``_BIG`` where ``corr`` is false)."""
+    d2s = torch.sort(key).values
+    n_corr = torch.sum(corr.to(torch.int32))
+    k = torch.clamp((n_corr.to(torch.float32) * trim_fraction).to(torch.int32), 1, n - 1)
+    return d2s.gather(0, k.to(torch.int64).reshape(1))  # no 0-dim index: it syncs
+
+
 def _trimmed(corr, nn_d2, n: int, trim_fraction: float):
     """``corr`` trimmed to the best ``trim_fraction`` of its distances
     (unchanged at 1)."""
     if trim_fraction >= 1.0:
         return corr
-    d2s = torch.sort(torch.where(corr, nn_d2, _BIG)).values
-    n_corr = torch.sum(corr.to(torch.int32))
-    k = torch.clamp((n_corr.to(torch.float32) * trim_fraction).to(torch.int32), 1, n - 1)
-    thr = d2s.gather(0, k.to(torch.int64).reshape(1))  # no 0-dim index: it syncs
-    return corr & (nn_d2 <= thr)
+    key = torch.where(corr, nn_d2, _BIG)
+    return corr & (nn_d2 <= _trim_threshold(corr, key, n, trim_fraction))
 
 
 def _iterate(step, T, max_iterations: int, convergence_eps: float):

@@ -11,7 +11,8 @@ arithmetic emulated in int64; both match the JAX package bit for bit,
 which is what lets the parity tests compare slot tables.
 
 Every ``mode="drop"`` scatter of the JAX package becomes a write into a
-buffer with one extra row that takes the dropped indices. Functions return
+buffer with one extra row that takes the dropped indices
+(``core/segment.py: with_drop_row``). Functions return
 new tensors and leave the input map untouched, as the JAX functions do.
 
 The merged plane queries make one call of
@@ -21,10 +22,11 @@ cached-plane query is one call of :func:`ops.query_cuda.query_cached`
 (probe and the read of the cached plane fields, one launch too). The
 insert's probe-and-claim rounds, saturation check and moment-update rows
 are one call of :func:`ops.insert_cuda.insert_claim`, one launch too; the
-plane refresh's moment and coordinate reads go through
-:func:`ops.gather_cuda.gather_rows`, the CUDA row gather. The moment
-scatter sums duplicates in a fixed order (``core/segment.py``), so the map
-is bit-deterministic run to run.
+plane refresh (the touched voxels' moment and coordinate reads, their
+plane fit and the writes of ``normal``, ``d`` and ``plane_valid``) is one
+call of :func:`ops.plane_fit_cuda.refresh_planes`, one launch too. The
+moment scatter sums duplicates in a fixed order (``core/segment.py``), so
+the map is bit-deterministic run to run.
 
 Lanes (the batched rollout, ``eval/batch_eval.py``; ``jax.vmap`` of these
 functions in the JAX package): ``make_map(cfg, lanes=B)`` makes a lane-major
@@ -47,8 +49,8 @@ from ..core.eigh3 import smallest_eigvec3
 from ..core.voxel import voxel_center as _voxel_center
 from ..core.voxel import voxel_coords as _voxel_coords
 from ..ops.assoc_cuda import merged_moments
-from ..ops.gather_cuda import gather_rows
 from ..ops.insert_cuda import insert_claim
+from ..ops.plane_fit_cuda import refresh_planes as _refresh_planes
 from ..ops.query_cuda import query_cached
 from ..utils.device import resolve_device
 
@@ -96,38 +98,6 @@ def make_map(cfg: VoxelMapConfig, device=None, lanes: int | None = None) -> Voxe
     )
 
 
-def _unpack_sym(m6):
-    """(..., 6) -> (..., 3, 3) symmetric."""
-    xx, xy, xz, yy, yz, zz = (m6[..., i] for i in range(6))
-    return torch.stack(
-        [
-            torch.stack([xx, xy, xz], dim=-1),
-            torch.stack([xy, yy, yz], dim=-1),
-            torch.stack([xz, yz, zz], dim=-1),
-        ],
-        dim=-2,
-    )
-
-
-def _with_drop_row(t, lane_major: bool = False):
-    """``t`` plus one zero row at index ``len(t)`` that takes the writes the
-    JAX package drops (``mode="drop"`` with an out-of-bounds index);
-    lane-major, one such row after each lane's table and the lanes
-    flattened: lane b's row i is row ``b * (C + 1) + i``."""
-    if not lane_major:
-        return torch.cat([t, torch.zeros_like(t[:1])])
-    return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1).reshape(
-        (-1,) + tuple(t.shape[2:]))
-
-
-def _without_drop_row(t, cap: int, lane_major: bool = False):
-    """The table of :func:`_with_drop_row`'s rows ``t``, the drop rows
-    left out (contiguous, as the kernels take a map's fields)."""
-    if not lane_major:
-        return t[:cap]
-    return t.reshape((-1, cap + 1) + tuple(t.shape[1:]))[:, :cap].contiguous()
-
-
 def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     """Insert a masked batch of world-frame points. Returns ``(map,
     n_dropped)``.
@@ -154,46 +124,18 @@ def insert(m: VoxelMap, cfg: VoxelMapConfig, xyz, mask, refresh_planes=True):
     # unassigned points go to the (lane's) drop row
     if lm:
         plan = segment.lane_plan(sl, cap + 1, dead=sl == cap)
-        rows = segment.lane_rows(sl, cap + 1)
     else:
         plan = segment.segment_plan(sl, dead=sl == cap)
-        rows = sl
-    moments = _without_drop_row(segment.index_add_(
-        _with_drop_row(m.moments, lm), plan, upd.reshape(-1, 10)), cap, lm)
+    moments = segment.without_drop_row(segment.index_add_(
+        segment.with_drop_row(m.moments, lm), plan, upd.reshape(-1, 10)), cap, lm)
 
     m = m._replace(fp=fp, coords=coords_tbl, moments=moments)
-    if refresh_planes:
-        # duplicates write identical values, so the scatter is deterministic
-        nrm, dd, pv = _fit_planes(m, cfg, sl)
-        normal = _with_drop_row(m.normal, lm)
-        normal[rows] = nrm
-        d = _with_drop_row(m.d, lm)
-        d[rows] = dd
-        plane_valid = _with_drop_row(m.plane_valid, lm)
-        plane_valid[rows] = pv
-        m = m._replace(normal=_without_drop_row(normal, cap, lm),
-                       d=_without_drop_row(d, cap, lm),
-                       plane_valid=_without_drop_row(plane_valid, cap, lm))
+    if refresh_planes:  # the touched voxels' planes, one launch on the card
+        normal, d, plane_valid = _refresh_planes(
+            m.moments, m.coords, sl, m.normal, m.d, m.plane_valid, cfg.voxel_size,
+            cfg.min_points, cfg.plane_var_thresh)
+        m = m._replace(normal=normal, d=d, plane_valid=plane_valid)
     return m, n_dropped
-
-
-def _fit_planes(m: VoxelMap, cfg: VoxelMapConfig, slots):
-    """Fit planes from the moments stored at ``slots`` (clipped gather; a
-    lane-major map's ``slots (B, n)`` are lane-local)."""
-    lm = m.fp.dim() == 2
-    mom = gather_rows(m.moments, slots, lane_major=lm)
-    c = mom[..., 0]
-    safe_c = torch.clamp(c, min=1.0)
-    mean_rel = mom[..., 1:4] / safe_c[..., None]
-    cov = _unpack_sym(mom[..., 4:10]) / safe_c[..., None, None] - (
-        mean_rel[..., :, None] * mean_rel[..., None, :]
-    )
-    normal, lam = smallest_eigvec3(cov)
-    center = _voxel_center(gather_rows(m.coords, slots, lane_major=lm), cfg.voxel_size)
-    mean_world = center + mean_rel
-    d = -torch.sum(normal * mean_world, dim=-1)
-    valid = (c >= cfg.min_points) & (lam[..., 0] < cfg.plane_var_thresh)
-    return normal, d, valid.to(torch.int32)
 
 
 def _fit_rvar(xyz, mean_world, cov, normal, lam, tot_c, cfg):

@@ -6,6 +6,8 @@ from . import (  # noqa: F401
     insert_cuda,
     kneighbors_cuda,
     nn_cuda,
+    p2pl_cuda,
+    plane_fit_cuda,
     query_cuda,
     take_along_cuda,
 )
@@ -19,6 +21,12 @@ from .nn_cuda import (  # noqa: F401
     nearest_neighbors_cuda,
     nearest_neighbors_ref,
 )
+from .p2pl_cuda import corr_keys, normal_eq, normal_eq_cuda, normal_eq_ref  # noqa: F401
+from .plane_fit_cuda import (  # noqa: F401
+    refresh_planes,
+    refresh_planes_cuda,
+    refresh_planes_ref,
+)
 from .query_cuda import query_cached, query_cached_cuda, query_cached_ref  # noqa: F401
 from .take_along_cuda import (  # noqa: F401
     take_along_axis,
@@ -29,4 +37,4 @@ from .take_along_cuda import (  # noqa: F401
 # every kernel module: KERNEL (name, route, source, replaces), launches,
 # reset_launches()
 KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda, assoc_cuda, insert_cuda, query_cuda,
-                  kneighbors_cuda, cluster_cuda)
+                  kneighbors_cuda, cluster_cuda, plane_fit_cuda, p2pl_cuda)

@@ -3,13 +3,14 @@ PyTorch version, and the dispatch between them.
 
 Port of the Pallas TPU kernels ``scripts/exp_assoc_kernels.py:
 exp_a_int_indexing`` and ``exp_b_fori_dynamic_slice`` (both compute
-``table[idx]``). On the engine path it is the plane refresh's read of
-the moment and coordinate tables (``map/voxel_hash.py: _fit_planes``: the
-loop closure's throwaway map, and the engine's map in the cached query
-mode) and the point-to-plane ICP's reads of the destination rows at the
-neighbours (``loop/icp.py: icp_align_p2pl``); the association's reads are
-fused into ``ops/assoc_cuda.py``, the cached-plane query's into
-``ops/query_cuda.py``, the insert's into ``ops/insert_cuda.py``.
+``table[idx]``). The gather experiments run it (``scripts/exp_gather.py``,
+``microbench_gather.py``, ``profile_insert.py``'s gather stages); no
+engine path does. There its reads live in the kernels that consume the
+rows: the association's in ``ops/assoc_cuda.py``, the cached-plane
+query's in ``ops/query_cuda.py``, the insert's in ``ops/insert_cuda.py``,
+the plane refresh's in ``ops/plane_fit_cuda.py`` and the point-to-plane
+ICP's in ``ops/p2pl_cuda.py``. The plain version :func:`gather_rows_ref`
+is the row read of all their plain versions.
 :func:`gather_rows` launches the kernel for CUDA tensors (or raises) and
 runs the plain version only for tensors on the CPU; there is no fallback
 from one to the other.
@@ -18,7 +19,7 @@ Index rule (JAX's for ``table[idx]``): a negative index wraps once
 (``-1`` -> ``C-1``) and what is still out of range clamps to ``[0, C-1]``.
 Rows whose ``valid`` is false come out as zeros.
 
-Lanes (the batched rollout's plane refresh): with ``lane_major``, the table
+Lanes (the batched rollout's lane-major map): with ``lane_major``, the table
 is ``(B, C)`` or ``(B, C, D)``, one table per lane, and ``idx`` is ``(B,
 ...)``; lane b's indices read lane b's table, the index rule applied within
 the lane, all lanes in one launch.

@@ -26,8 +26,8 @@ in its slot range and one small collective combines the per-point results:
 Ownership is tested on the slot index in int64: the uint32 slot hash is
 emulated in int64 (``core/voxel.py``). Each rank's scatters write a local
 drop row, row ``C/n`` of its shard, appended for the scatter and cut off
-after it (as the replicated insert appends row ``C``, ``map/voxel_hash.py:
-_with_drop_row``): a point that no slot of this rank takes writes there.
+after it (as the replicated insert appends row ``C``, ``core/segment.py:
+with_drop_row``): a point that no slot of this rank takes writes there.
 The moment scatter sums in the fixed order of ``core/segment.py``, no
 float atomics, so each owner's rows get the replicated insert's sums bit
 for bit.

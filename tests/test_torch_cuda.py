@@ -18,7 +18,14 @@ The insert at the map build's 65,536-point batches and the plane
 refresh's reads at its slots: bit for bit, as below. The KITTI resume:
 two engines from one checkpoint equal bit for bit. The row gather,
 take_along_axis and the cached-plane query are copies: equal bit for bit
-(NaN fill included). The association's merged moments: equal bit for bit
+(NaN fill included). The plane refresh: rows it does not touch bit for
+bit, the touched ones within ``plane_fit_cuda.TOLERANCE`` (``compare``: the
+plain version's cuBLAS matmul in the eigenvector rounds otherwise), lanes
+bit for bit with the unbatched kernel, two launches bit for bit. The
+point-to-plane normal equations: G and b within ``p2pl_cuda.TOLERANCE``
+of their largest entries (the plain version's matmul sums in another
+order), the trim's keys bit for bit, two launches bit for bit; the ICP's
+final pose within 1e-5 m / rad of the plain versions'. The association's merged moments: equal bit for bit
 (the kernel rounds every product and sum as the plain version does, in its
 order). The replay: two runs equal bit for bit. The bag run through
 ``run_slam``: the path's kernels launch, and its replay with pageable
@@ -797,8 +804,9 @@ def test_run_slam_bag_launches_the_path_kernels(cuda_device, tmp_path, monkeypat
     launches = {mod.KERNEL["name"]: mod.launches for mod in KERNEL_MODULES}
     assert len(engine.realtime_traj) == 60 and len(engine.loop_attempts) >= 1
     assert np.all(np.isfinite(np.stack(engine.realtime_traj)))
-    for name in ("merged_moments", "insert_claim", "gather_rows", "nearest_neighbors"):
+    for name in ("merged_moments", "insert_claim", "refresh_planes", "nearest_neighbors"):
         assert launches[name] > 0, (name, launches)
+    assert launches["gather_rows"] == 0  # its engine reads live in refresh_planes
     monkeypatch.setattr(run_slam, "upload", lambda a, dev, dtype=torch.float32:
                         torch.as_tensor(a, dtype=dtype).to(dev))
     pageable, _ = run_slam.run(argv)
@@ -1244,7 +1252,8 @@ PROFILE_KERNELS = {  # script: {stage: kernels it must launch}
                       "insert": ("insert_claim",)},
     "profile_step": {"step": ("merged_moments", "insert_claim"),
                      "query_merged": ("merged_moments",), "iekf": ("merged_moments",),
-                     "insert": ("insert_claim", "gather_rows"), "query_cached": ("query_cached",)},
+                     "insert": ("insert_claim", "refresh_planes"),
+                     "query_cached": ("query_cached",)},
     "profile_insert": {"insert": ("insert_claim",), "query": ("merged_moments",),
                        "find_slots": ("merged_moments",), "gather": ("gather_rows",),
                        "gather_int": ("gather_rows",)},
@@ -1355,3 +1364,234 @@ def test_profile_pipeline_variants_repeat_bit_for_bit(cuda_device):
         assert rec["launches"]["merged_moments"] > 0 and rec["launches"]["insert_claim"] > 0
         assert np.isfinite(runs[variant]["traj"]).all() and rec["scans_per_sec"] > 0
     assert out["no_kf"]["kf_loops_solves"][0] == 1 < out["full"]["kf_loops_solves"][0]
+
+
+# ---------------------------------------------------------------------------
+# the plane refresh (csrc/plane_fit.cu) and the point-to-plane normal
+# equations (csrc/p2pl.cu): kernels against their plain versions
+# ---------------------------------------------------------------------------
+from fastliosam_tpu_torch.ops import p2pl_cuda, plane_fit_cuda  # noqa: E402
+
+
+def _refresh_tables(dev, seed, n, cap_log2=12, lanes=None):
+    """A map with surfels, lines, single points and empty slots, and the
+    slots of ``n`` points inserted into it (duplicates, drop rows where the
+    table is full). Returns ``(args, cfg)``: the refresh's inputs."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.ops import insert_cuda
+
+    rng = np.random.default_rng(seed)
+    cfg = vh.VoxelMapConfig(capacity=1 << cap_log2, voxel_size=0.5, insert_probes=2,
+                            claim_probes=2, min_points=4)
+
+    def cloud(k):
+        u = rng.uniform(-8, 8, size=(k, 2))
+        plane = np.c_[u, 0.2 * u[:, 0] - 1.0]  # a tilted floor
+        line = np.c_[np.linspace(-8, 8, k // 4), np.full(k // 4, 3.1), np.full(k // 4, 2.2)]
+        single = rng.uniform(-30, 30, size=(k // 8, 3))  # one point a voxel
+        pts = np.concatenate([plane, line, single])
+        pts[: k // 2] += rng.normal(size=(k // 2, 3)) * 0.01
+        return torch.from_numpy(pts[:k].astype(np.float32)).to(dev)
+
+    shape = (lanes,) if lanes else ()
+    m = vh.make_map(cfg, dev, lanes=lanes)
+    xyz = torch.stack([cloud(n) for _ in range(lanes)]) if lanes else cloud(n)
+    mask = torch.ones(shape + (n,), dtype=torch.bool, device=dev)
+    m, _ = vh.insert(m, cfg, xyz, mask, refresh_planes=True)  # old planes to keep
+    xyz2 = (xyz + 0.07).contiguous()
+    sl = insert_cuda.insert_claim_cuda(m.fp, m.coords, m.moments, xyz2, mask, cfg.voxel_size,
+                                       2, cfg.max_points_per_voxel)[2]
+    m2, _ = vh.insert(m, cfg, xyz2, mask, refresh_planes=False)
+    return (m2.moments, m2.coords, sl, m.normal, m.d, m.plane_valid), cfg
+
+
+def _refresh_both(args, cfg):
+    tail = (cfg.voxel_size, cfg.min_points, cfg.plane_var_thresh)
+    before = plane_fit_cuda.launches
+    got = plane_fit_cuda.refresh_planes(*args, *tail)
+    assert plane_fit_cuda.launches == before + 1
+    want = plane_fit_cuda.refresh_planes_ref(*args, *tail)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap_log2", [(1, 12), (1000, 12), (4099, 12), (16384, 14),
+                                         (20000, 10)])
+def test_refresh_planes_kernel_matches_plain_version(cuda_device, n, cap_log2):
+    """Ragged counts, duplicate slots, lines and single points (degenerate
+    covariances), empty voxels, and a 2^10 table that drops points."""
+    args, cfg = _refresh_tables(cuda_device, n + cap_log2, n, cap_log2)
+    sl = args[2]
+    if cap_log2 == 10:
+        assert bool((sl == cfg.capacity).any())
+    got, want = _refresh_both(args, cfg)
+    rec = plane_fit_cuda.compare(got, want, *args[:3], cfg.voxel_size, cfg.plane_var_thresh)
+    assert rec["ok"], rec
+    again = plane_fit_cuda.refresh_planes_cuda(*args, cfg.voxel_size, cfg.min_points,
+                                               cfg.plane_var_thresh)
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(_bits(a) if a.is_floating_point() else a.cpu().numpy(),
+                                      _bits(b) if b.is_floating_point() else b.cpu().numpy())
+    for old, new in zip(args[3:], got):  # new tables: the old ones untouched
+        assert new.data_ptr() != old.data_ptr()
+
+
+@pytest.mark.cuda
+def test_refresh_planes_kernel_drop_and_empty_slots(cuda_device):
+    """Slots equal to C (the drop row) write nothing; a slot of an empty
+    voxel (zero moments) gets the fit of zero moments, as the plain
+    version's."""
+    args, cfg = _refresh_tables(cuda_device, 5, 2000)
+    cap = cfg.capacity
+    empty = torch.nonzero(args[0][:, 0] == 0)[:8, 0]
+    sl = torch.cat([torch.full((5,), cap, device=cuda_device), empty, args[2][:100]])
+    got, want = _refresh_both((args[0], args[1], sl.contiguous(), *args[3:]), cfg)
+    rec = plane_fit_cuda.compare(got, want, args[0], args[1], sl, cfg.voxel_size,
+                                 cfg.plane_var_thresh)
+    assert rec["ok"], rec
+    assert not bool(got[2][empty].any())  # no points: never a valid plane
+    only_drop = torch.full((7,), cap, device=cuda_device)
+    got, _ = _refresh_both((args[0], args[1], only_drop, *args[3:]), cfg)
+    for a, b in zip(got, args[3:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_refresh_planes_kernel_lanes(cuda_device):
+    """Lane-major tables: one launch for 3 lanes, within tolerance of the
+    plain version and lane by lane bit for bit with the unbatched kernel."""
+    args, cfg = _refresh_tables(cuda_device, 9, 3000, lanes=3)
+    got, want = _refresh_both(args, cfg)
+    assert plane_fit_cuda.compare(got, want, *args[:3], cfg.voxel_size,
+                                  cfg.plane_var_thresh)["ok"]
+    for b in range(3):
+        one = plane_fit_cuda.refresh_planes_cuda(*(t[b] for t in args), cfg.voxel_size,
+                                                 cfg.min_points, cfg.plane_var_thresh)
+        for a, o in zip(got, one):
+            assert torch.equal(a[b], o)
+
+
+@pytest.mark.cuda
+def test_refresh_planes_kernel_rejects_bad_inputs(cuda_device):
+    args, cfg = _refresh_tables(cuda_device, 3, 100)
+    tail = (cfg.voxel_size, cfg.min_points, cfg.plane_var_thresh)
+    moments, coords, sl, normal, d, pv = args
+    with pytest.raises(ValueError):
+        plane_fit_cuda.refresh_planes_cuda(moments, coords, sl.to(torch.int32), normal, d, pv,
+                                           *tail)
+    with pytest.raises(ValueError):
+        plane_fit_cuda.refresh_planes_cuda(moments, coords, sl, normal.t(), d, pv, *tail)
+    with pytest.raises(ValueError):
+        plane_fit_cuda.refresh_planes_cuda(moments, coords.cpu(), sl, normal, d, pv, *tail)
+    with pytest.raises(ValueError):
+        plane_fit_cuda.refresh_planes_cuda(moments[:, :9].contiguous(), coords, sl, normal, d,
+                                           pv, *tail)
+
+
+def _p2pl_inputs(dev, seed, n, m):
+    """Points near a few planes, their normals, ~5% invalid flags, a ragged
+    source mask and the plain NN's neighbours of the shifted source."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-10, 10, size=(m, 2))
+    k = m // 3
+    dst = np.concatenate([np.c_[u[:k], np.zeros(k)], np.c_[u[k:2 * k, 0], np.full(k, 6.0),
+                                                            u[k:2 * k, 1] * 0.2 + 2],
+                          np.c_[np.full(m - 2 * k, 9.0), u[2 * k:]]]).astype(np.float32)
+    nrm = np.concatenate([np.tile([0, 0, 1.0], (k, 1)), np.tile([0, 1.0, 0], (k, 1)),
+                          np.tile([1.0, 0, 0], (m - 2 * k, 1))]).astype(np.float32)
+    src = dst[rng.integers(0, m, size=n)] + np.array([0.2, -0.1, 0.05], np.float32)
+    t = {name: torch.from_numpy(a).to(dev) for name, a in
+         (("dst", dst), ("nrm", nrm), ("ps", src.astype(np.float32)))}
+    nvalid = torch.from_numpy(rng.uniform(size=m) > 0.05).to(dev)
+    mask = torch.from_numpy(rng.uniform(size=n) > 0.03).to(dev)
+    idx, d2 = nn_cuda.nearest_neighbors_ref(t["ps"], t["dst"],
+                                            torch.ones(m, dtype=torch.bool, device=dev))
+    return t["ps"], idx, d2, mask, t["dst"], t["nrm"], nvalid
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= p2pl_cuda.TOLERANCE * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1, 7), (1000, 3001), (16384, 16384), (70000, 2000)])
+@pytest.mark.parametrize("trim", [1.0, 0.8])
+def test_p2pl_kernels_match_plain_version(cuda_device, n, m, trim):
+    from fastliosam_tpu_torch.loop import icp
+
+    s = _p2pl_inputs(cuda_device, n + m, n, m)
+    max_d2 = 2.0
+    thr = None
+    before = p2pl_cuda.launches
+    if trim < 1.0:
+        ck, kk = p2pl_cuda.corr_keys(s[1], s[2], s[3], s[6], max_d2)
+        cp, kp = p2pl_cuda.corr_keys_ref(s[1], s[2], s[3], s[6], max_d2)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, cp) and np.array_equal(_bits(kk), _bits(kp))
+        thr = icp._trim_threshold(cp, kp, n, trim)
+    got = p2pl_cuda.normal_eq(*s, max_d2, thr)
+    assert p2pl_cuda.launches == before + (2 if trim < 1.0 else 1)
+    want = p2pl_cuda.normal_eq_ref(*s, max_d2, thr)
+    torch.cuda.synchronize()
+    _close(got, want)
+    again = p2pl_cuda.normal_eq_cuda(*s, max_d2, thr)
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert torch.equal(got[0], got[0].T)
+
+
+@pytest.mark.cuda
+def test_p2pl_kernel_index_rule_and_empty(cuda_device):
+    ps, idx, d2, mask, dst, nrm, nvalid = _p2pl_inputs(cuda_device, 4, 5000, 3000)
+    m = dst.shape[0]
+    odd = idx.clone()
+    odd[::5] -= m
+    odd[1::50] = m + 7
+    fixed = idx.clone()
+    fixed[1::50] = m - 1
+    a = p2pl_cuda.normal_eq_cuda(ps, odd, d2, mask, dst, nrm, nvalid, 2.0)
+    b = p2pl_cuda.normal_eq_cuda(ps, fixed, d2, mask, dst, nrm, nvalid, 2.0)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+    G, bb = p2pl_cuda.normal_eq_cuda(ps, idx, d2, torch.zeros_like(mask), dst, nrm, nvalid, 2.0)
+    assert not bool(G.any()) and not bool(bb.any())
+
+
+@pytest.mark.cuda
+def test_p2pl_kernel_rejects_bad_inputs(cuda_device):
+    ps, idx, d2, mask, dst, nrm, nvalid = _p2pl_inputs(cuda_device, 5, 100, 50)
+    with pytest.raises(ValueError):
+        p2pl_cuda.normal_eq_cuda(ps, idx.long(), d2, mask, dst, nrm, nvalid, 2.0)
+    with pytest.raises(ValueError):
+        p2pl_cuda.normal_eq_cuda(ps, idx, d2, mask, dst, nrm, nvalid.int(), 2.0)
+    with pytest.raises(ValueError):
+        p2pl_cuda.normal_eq_cuda(ps.cpu(), idx, d2, mask, dst, nrm, nvalid, 2.0)
+    with pytest.raises(ValueError):
+        p2pl_cuda.corr_keys_cuda(idx, d2[:-1], mask, nvalid, 2.0)
+    with pytest.raises(ValueError):
+        p2pl_cuda.normal_eq_cuda(ps, idx, d2, mask, dst, nrm, nvalid, 2.0,
+                                 torch.zeros(2, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trim", [1.0, 0.8])
+def test_icp_p2pl_on_the_kernels_matches_the_plain_versions(cuda_device, monkeypatch, trim):
+    """``icp_align_p2pl`` on the card: the kernels' final pose within 1e-5
+    m / rad of the run with the plain versions swapped in, and the run
+    replayed bit for bit."""
+    from fastliosam_tpu_torch.loop import icp
+
+    ps, _, _, mask, dst, nrm, nvalid = _p2pl_inputs(cuda_device, 6, 8000, 8000)
+    dmask = torch.ones(dst.shape[0], dtype=torch.bool, device=cuda_device)
+    kw = dict(max_iterations=30, max_corr_dist=1.5, trim_fraction=trim)
+    T1 = icp.icp_align_p2pl(ps, mask, dst, dmask, nrm, nvalid, **kw)[0]
+    T2 = icp.icp_align_p2pl(ps, mask, dst, dmask, nrm, nvalid, **kw)[0]
+    assert torch.equal(T1, T2)
+    monkeypatch.setattr(p2pl_cuda, "normal_eq", p2pl_cuda.normal_eq_ref)
+    monkeypatch.setattr(p2pl_cuda, "corr_keys", p2pl_cuda.corr_keys_ref)
+    Tp = icp.icp_align_p2pl(ps, mask, dst, dmask, nrm, nvalid, **kw)[0]
+    a, b = T1.double().cpu().numpy(), Tp.double().cpu().numpy()
+    assert np.abs(a - b).max() <= 1e-5

@@ -46,6 +46,7 @@ from fastliosam_tpu_torch.core.eigh3 import eigvalsh3  # noqa: E402
 from fastliosam_tpu_torch.map import voxel_hash as tvh  # noqa: E402
 from fastliosam_tpu_torch.odom import iekf as tiekf  # noqa: E402
 from fastliosam_tpu_torch.ops import query_cuda  # noqa: E402
+from fastliosam_tpu_torch.ops.plane_fit_cuda import unpack_sym  # noqa: E402
 
 from _torch_parity import N, T, tree_np  # noqa: E402
 from test_torch_voxel_hash import CFGS, _jax_totals, _port_cfg, _surfels, j_insert  # noqa: E402
@@ -125,7 +126,7 @@ def _eigen_gap(moments):
     m = T(moments)
     c = torch.clamp(m[:, 0], min=1.0)
     mean = m[:, 1:4] / c[:, None]
-    cov = tvh._unpack_sym(m[:, 4:10]) / c[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    cov = unpack_sym(m[:, 4:10]) / c[:, None, None] - mean[:, :, None] * mean[:, None, :]
     lam = N(eigvalsh3(cov))
     return lam[:, 1] - lam[:, 0]
 

@@ -20,6 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 from fastliosam_tpu.map import voxel_hash as jvh  # noqa: E402
 from fastliosam_tpu_torch.core import voxel as tvoxel  # noqa: E402
 from fastliosam_tpu_torch.map import voxel_hash as tvh  # noqa: E402
+from fastliosam_tpu_torch.ops.gather_cuda import gather_rows  # noqa: E402
+from fastliosam_tpu_torch.ops.plane_fit_cuda import unpack_sym  # noqa: E402
 
 from _torch_parity import N, T, tree_np  # noqa: E402
 from fastliosam_tpu_torch.convert import voxel_map_from_numpy  # noqa: E402
@@ -246,10 +248,10 @@ def _composed_totals(m, cfg, pools, coords0, mask):
         slots = torch.full((n,), -1, dtype=torch.int64)
         for p in range(cfg.query_probes):
             cand = (h0 + p) & (cap - 1)
-            match = tvh.gather_rows(m.fp, cand) == want
+            match = gather_rows(m.fp, cand) == want
             slots = torch.where((slots < 0) & match & mask, cand, slots)
-        mom = tvh.gather_rows(m.moments, slots, valid=slots >= 0)
-        ci, si, oi = mom[:, 0], mom[:, 1:4], tvh._unpack_sym(mom[:, 4:10])
+        mom = gather_rows(m.moments, slots, valid=slots >= 0)
+        ci, si, oi = mom[:, 0], mom[:, 1:4], unpack_sym(mom[:, 4:10])
         dc = tvh._voxel_center(coords, cfg.voxel_size) - c0
         tot_c = tot_c + ci
         tot_s = tot_s + si + ci[:, None] * dc

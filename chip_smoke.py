@@ -52,7 +52,12 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      query on that map with its planes fitted (8192 queries, 2 probes) and
      on the submaps' surfel maps (16,384
      queries, 2^14 slots, 4 probes), plus ragged, all-masked, not-found
-     and tight-table queries;
+     and tight-table queries; and the cached-mode iEKF's rows
+     (``cached_rows``) on that map: 8192 downsampled body points of each
+     of its last 10 scans at the engine's poses, a probe, the device flag
+     on and off, a carried association, the extrinsic's columns, ragged,
+     all-masked, not-found and tight-table cases, every output bit for
+     bit and two launches the same words;
   4. per-scan phase: ``SlamEngine.process`` over the figure-8 loop feed at
      the full width of the bench's loop-closing configuration (2048 x 16
      rays = 32,768 points per scan, 8192 iEKF points, a 2^19-slot map,
@@ -75,7 +80,10 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      merged2 query and the multi-start loop ICP of ``bench.py:
      bench_kitti_rich``; each twice from ``reset()`` (replay bit for bit),
      ATE < 0.10 m, more than 500 matches a scan from scan 3 on, a
-     verification;
+     verification; the cached run's iEKF through ``cached_rows`` (one
+     launch an iteration), ``query_cached`` launched only by the
+     verifications' point-to-plane normals, its replay's last 15 scans
+     traced (device operations a scan) and its host reads a scan printed;
   8. KITTI phase, the dataset entry point at the bench's width and depth
      (``bench.py: bench_kitti_longrun``): ``drive_kitti`` over the
      1160-scan synthetic KITTI circuit read by the native reader (q16
@@ -120,15 +128,18 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      window over the first 4 scans (the largest difference over the window
      printed); ``merged_moments`` and ``insert_claim`` launched as many
      times a step at 8 lanes as at 1; and a cached-mode batch (8 lanes x
-     20 scans, ATE gated as above) that launches ``query_cached``,
-     ``refresh_planes`` and ``insert_claim``. Printed: lane-scans/s, peak device memory. Then
+     20 scans, ATE gated as above) that launches ``cached_rows``,
+     ``refresh_planes`` and ``insert_claim`` and no ``query_cached`` (its
+     probe is in ``cached_rows``; the merged3 batch launches no
+     ``cached_rows``). Printed: lane-scans/s, peak device memory. Then
      the map kernels at the lane shapes, on the rollout's 8 maps: each bit
      for bit with its lane-batched plain version and, lane by lane, with
      the unbatched kernel on that lane's table alone, timed beside the
      timing floor and its byte bound (``merged_moments`` 8 x 8192 x 3 pools
      x 2 probes and a ragged 3 x 5000; ``insert_claim`` 8 x 8192 and 32 x
      8192 points, 2 rounds, one cooperative launch each; ``query_cached``
-     8 x 8192; ``gather_rows`` of (8, 2^19, 10) rows at 8 x 8192 slots,
+     8 x 8192; ``cached_rows`` 8 x 8192 body points, even lanes probing;
+     ``gather_rows`` of (8, 2^19, 10) rows at 8 x 8192 slots,
      beside ``torch.gather`` of the same rows; ``refresh_planes`` of the
      cached batch, 8 x 8192 slots into 8 x 2^19 rows), printed under ``at_lanes``
      in the kernels line;
@@ -1049,6 +1060,160 @@ def check_query(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     return dict(recs["odometry"], at_p2pl_shape=recs["p2pl"])
 
 
+def _downsampled_body(feed, k, dev, budget: int = 8192):
+    """Scan ``k``'s points downsampled as the odometry downsamples them
+    (0.5 m voxels, the first ``budget`` of the packed output) in the body
+    frame (not deskewed): the iEKF's ``(pts_body, mask)``."""
+    import torch
+
+    from fastliosam_tpu_torch.core.pointcloud import Cloud, voxel_downsample
+
+    ds = voxel_downsample(Cloud(torch.from_numpy(feed["xyz"][k]).to(dev),
+                                torch.from_numpy(feed["mask"][k]).to(dev)), 0.5)
+    return ds.xyz[:budget].contiguous(), ds.mask[:budget].contiguous()
+
+
+def check_cached_rows(dev, feed, fig8, floor_ms: float, n_map_scans: int = 20,
+                      reps: int = 10) -> dict:
+    """The cached-mode iEKF's rows (``cached_rows``) against their plain
+    version, bit for bit on every output (normals, residuals, valid flags,
+    rows, weighted rows, confident weights, ``n * wc``, the match count and
+    the association's slots), at the main path's shape: each of the engine
+    map's last ``reps`` scans downsampled to 8192 body points at the
+    engine's pose of that scan, against the 2^19-slot figure-8 map with
+    every occupied voxel's plane fitted, 2 probes. The three calls of an
+    update: a probe (the first iteration), the device flag on and off
+    after a probe 10 cm and 10 mrad away (the gated iteration), the carried
+    association (the last); the extrinsic's columns (probing at the body
+    points); ragged (8191 + 77 points that find nothing, every 13th
+    masked), all masked, not found and a tight 2^12 table that dropped
+    points; a second launch gives the same words. The probe and the carried
+    call are timed beside the plain version, the timing floor and
+    ``hbm_bytes``'s bound. Returns the probe's record (the kernels line)
+    with the carried call's under ``at_carried``."""
+    import torch
+
+    from fastliosam_tpu_torch.core.voxel import hash_slot, voxel_coords
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.odom import OdomConfig
+    from fastliosam_tpu_torch.ops import cached_rows_cuda as crc
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    m, cfg, traj, *_ = fig8
+    mc = _cached_map(m, cfg)
+    oc = OdomConfig()
+    tail = (cfg.voxel_size, cfg.query_probes, oc.point_cov, oc.max_residual,
+            oc.degen_conf_ratio)
+    table = (mc.fp, mc.normal, mc.d, mc.plane_valid)
+    c, s = np.cos(0.01), np.sin(0.01)  # a 10 mrad yaw
+    turn = torch.from_numpy(np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]],
+                                     np.float32)).to(dev)
+    shift = torch.tensor([0.1, 0.0, 0.0], device=dev)
+
+    def state(k):
+        pose = torch.from_numpy(traj[k]).to(dev)
+        return pose[:3, :3].contiguous(), pose[:3, 3].contiguous()
+
+    def words(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def compare(name, args, kw):
+        got = crc.cached_rows_cuda(*args, *tail, **kw)
+        again = crc.cached_rows_cuda(*args, *tail, **kw)
+        want = crc.cached_rows_ref(*args, *tail, **kw)
+        torch.cuda.synchronize()
+        for field, g, w, a in zip(crc.CachedRows._fields, got, want, again):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(words(g), words(w)):
+                raise AssertionError(f"cached_rows {name}: kernel and plain version differ "
+                                     f"in {field}")
+            if not torch.equal(words(g), words(a)):
+                raise AssertionError(f"cached_rows {name}: two launches differ in {field}")
+        return got
+
+    sets, carried_sets, matched = [], [], []
+    for k in range(n_map_scans - reps, n_map_scans):
+        R, p = state(k)
+        pts, mask = _downsampled_body(feed, k, dev)
+        first = compare("probe", (R, p, pts, mask, table, None, True), {})
+        matched.append(int(first.n_matched))
+        R0, p0 = (R @ turn).contiguous(), p + shift
+        away = compare("probe away", (R0, p0, pts, mask, table, None, True), {})
+        for flag in (True, False):
+            got = compare(f"flag {flag}", (R, p, pts, mask, table, away.slots,
+                                           torch.tensor(flag, device=dev)), {})
+            ref = first if flag else away
+            if not torch.equal(got.slots, ref.slots):
+                raise AssertionError("cached_rows: the device flag chose the wrong association")
+        compare("carried", (R, p, pts, mask, table, away.slots, False), {})
+        sets.append((R, p, pts, mask, table, None, True))
+        carried_sets.append((R, p, pts, mask, table, first.slots, False))
+    # the extrinsic's columns, probing at the body points
+    R, p, pts, mask = sets[0][:4]
+    R_ext = turn.mT.contiguous()
+    t_ext = torch.tensor([0.05, -0.02, 0.1], device=dev)
+    p_l = ((pts - t_ext) @ R_ext).contiguous()
+    q_b = (p_l @ R_ext.mT + t_ext).contiguous()
+    compare("extrinsic", (R, p, q_b, mask, table, None, True),
+            {"q_query": pts, "p_l": p_l, "R_ext": R_ext})
+    # ragged, all masked, not found, tight
+    far = (torch.full((77, 3), 900.0, device=dev)
+           + torch.arange(77, device=dev, dtype=torch.float32)[:, None])
+    rpts = torch.cat([pts[:8191], far]).contiguous()
+    rmask = torch.cat([mask[:8191], torch.ones(77, dtype=torch.bool, device=dev)])
+    rmask[::13] = False
+    got = compare("ragged", (R, p, rpts, rmask, table, None, True), {})
+    if bool(got.valid[-77:].any()) or bool((got.slots[-77:] >= 0).any()):
+        raise AssertionError("cached_rows: a point that finds nothing must not be valid")
+    compare("all masked", (R, p, pts, torch.zeros_like(mask), table, None, True), {})
+    compare("not found", (R, p, far.contiguous(), torch.ones(77, dtype=torch.bool, device=dev),
+                          table, None, True), {})
+    tight_cfg = vh.VoxelMapConfig(capacity=1 << 12, voxel_size=0.5, min_points=5,
+                                  query_probes=4)
+    world = (pts @ R.mT + p).contiguous()
+    tight, dropped = vh.insert(vh.make_map(tight_cfg, dev), tight_cfg,
+                               torch.cat([world, world + 0.25]).contiguous(),
+                               torch.cat([mask, mask]), refresh_planes=True)
+    if int(dropped) == 0:
+        raise AssertionError("cached_rows tight case: the 2^12 table must overflow")
+    compare("tight 2^12", (R, p, pts, mask, (tight.fp, tight.normal, tight.d, tight.plane_valid),
+                           None, True), {})
+
+    def call(*args):
+        return crc.cached_rows_cuda(*args, *tail)
+
+    def plain(*args):
+        return crc.cached_rows_ref(*args, *tail)
+
+    recs = {}
+    for name, ss in (("probe", sets), ("carried", carried_sets)):
+        ms = device_ms(call, ss)
+        plain_ms = device_ms(plain, ss)
+        nbytes = []
+        for a in ss:
+            rows = crc.cached_rows_ref(*a, *tail)
+            pw = a[2] @ a[0].mT + a[1]  # the probe's points: first slots of its voxels
+            h0 = hash_slot(voxel_coords(pw, cfg.voxel_size), cfg.capacity).cpu().numpy()
+            nbytes.append(crc.hbm_bytes(rows, a[4], a[3], a[6], h0, cfg.query_probes))
+        nb = float(np.mean(nbytes))
+        recs[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": nb / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                      "library_ms": None,
+                      "library_note": "none: no PyTorch call probes a hash table and forms "
+                                      "the rows",
+                      "timing_floor_ms": floor_ms, "n": int(ss[0][2].shape[0]),
+                      "capacity": cfg.capacity, "probes": cfg.query_probes, "sets": len(ss),
+                      "bytes": nb, "n_matched_mean": float(np.mean(matched))}
+        print(f"  cached_rows {name}: 8192 body points x 2^{cfg.capacity.bit_length() - 1} "
+              f"slots, {cfg.query_probes} probes, {len(ss)} sets: equal on every output, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{recs[name]['bound_ms']:.5f} ms ({nb:.0f} HBM bytes), floor {floor_ms:.4f} ms, "
+              f"matched {np.mean(matched):.0f} a scan")
+    print(f"  cached_rows: equal on the flag on / off, carried, extrinsic, ragged, all-masked, "
+          f"not-found and tight 2^12 ({int(dropped)} of {2 * len(mask)} points dropped) cases, "
+          f"two launches the same words")
+    return dict(recs["probe"], at_carried=recs["carried"])
+
+
 def _downsampled_world(feed, k, pose, dev, budget: int = 8192):
     """Scan ``k``'s points downsampled as the odometry downsamples them
     (0.5 m voxels, the first ``budget`` of the packed output) and placed at
@@ -1268,8 +1433,9 @@ def _start(engine, feed, dev):
 
 
 class _Probe:
-    """Host time, host reads and NN launches inside the engine's loop
-    verification, loop resolution and solve (wrapped on the instance)."""
+    """Host time, host reads, and NN and cached-query launches inside the
+    engine's loop verification, loop resolution and solve (wrapped on the
+    instance)."""
 
     NAMES = ("_launch_verify", "_resolve_pending_loop", "_solve")
 
@@ -1278,17 +1444,18 @@ class _Probe:
         self.s = {n: 0.0 for n in self.NAMES}
         self.reads = {n: 0 for n in self.NAMES}
         self.calls = {n: 0 for n in self.NAMES}
-        self.verify_reads, self.verify_nn = [], []
+        self.verify_reads, self.verify_nn, self.verify_query = [], [], []
 
     def __enter__(self):
-        from fastliosam_tpu_torch.ops import nn_cuda
+        from fastliosam_tpu_torch.ops import nn_cuda, query_cuda
         from fastliosam_tpu_torch.utils import host_reads
 
         self.saved = {n: getattr(self.engine, n) for n in self.NAMES}
 
         def wrap(name, fn):
             def call(*args):
-                t0, r0, l0 = time.perf_counter(), host_reads(), nn_cuda.launches
+                t0, r0, l0, q0 = (time.perf_counter(), host_reads(), nn_cuda.launches,
+                                  query_cuda.launches)
                 try:
                     return fn(*args)
                 finally:
@@ -1298,6 +1465,7 @@ class _Probe:
                     if name == "_launch_verify":
                         self.verify_reads.append(host_reads() - r0)
                         self.verify_nn.append(nn_cuda.launches - l0)
+                        self.verify_query.append(query_cuda.launches - q0)
             return call
 
         for n, fn in self.saved.items():
@@ -1349,7 +1517,7 @@ def run_engine(engine, feed, dev, n_scans: int, profile_from=None):
         total = time.perf_counter() - t0
     timing = {"total_s": total, "verify_s": probe.s["_launch_verify"],
               "solve_s": probe.s["_solve"], "verify_syncs": probe.verify_reads,
-              "verify_nn": probe.verify_nn}
+              "verify_nn": probe.verify_nn, "verify_query": probe.verify_query}
     if prof is not None:
         prof.__exit__(None, None, None)
         timing["prof"], timing["prof_wall_s"] = prof, time.perf_counter() - t_prof
@@ -1392,7 +1560,8 @@ def run_chunks(engine, feed, dev, chunk: int, deferred: bool, fixes=None, profil
     out = {"total_s": total, "scans": n, "chunks": n // chunk, "host_reads": reads,
            "loop_and_solve_reads": sum(probe.reads.values()),
            "solve_s": probe.s["_solve"], "verify_s": probe.s["_launch_verify"],
-           "verify_syncs": probe.verify_reads, "verify_nn": probe.verify_nn}
+           "verify_syncs": probe.verify_reads, "verify_nn": probe.verify_nn,
+           "verify_query": probe.verify_query}
     if prof is not None:
         prof.__exit__(None, None, None)
         out["prof"], out["prof_wall_s"] = prof, time.perf_counter() - t_prof
@@ -1429,6 +1598,12 @@ def _no_gather(launches) -> dict:
     """The gate that an engine path ran no row gather: its reads there
     live in the plane refresh and the point-to-plane kernels."""
     return {"gather_rows not launched": launches["gather_rows"] == 0}
+
+
+def _default_path(launches) -> dict:
+    """The gates of a path in the default (merged) query modes: no row
+    gather, and no cached-mode rows."""
+    return {**_no_gather(launches), "cached_rows not launched": launches["cached_rows"] == 0}
 
 
 def _window_ops(run, top: int = 6) -> float:
@@ -1504,7 +1679,7 @@ def per_scan_phase(dev, feed):
         "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
             min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
-        **_no_gather(launches),
+        **_default_path(launches),
         "ATE < 0.10 m": ate < 0.10,
         "replay bit-identical": result["replay_bit_identical"],
     })
@@ -1562,7 +1737,7 @@ def chunked_phase(dev, feed, chunk: int = 5):
         "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
             min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
-        **_no_gather(launches),
+        **_default_path(launches),
         "replay bit-identical": result["replay_bit_identical"],
     })
     return result
@@ -1572,8 +1747,8 @@ def chunked_phase(dev, feed, chunk: int = 5):
 # the bench's pipeline, its path, and the kernels that path must launch
 MODES = {
     "cached_p2pl": (dict(query_mode="cached"), dict(icp_method="p2pl"), "per_scan",
-                    ("query_cached", "insert_claim", "refresh_planes", "p2pl_normal_eq",
-                     "nearest_neighbors")),
+                    ("cached_rows", "query_cached", "insert_claim", "refresh_planes",
+                     "p2pl_normal_eq", "nearest_neighbors")),
     "merged2_multistart": (dict(query_mode="merged2"),
                            dict(icp_multistart=5, multistart_step=4.0, multistart_iters=12),
                            "chunked", ("merged_moments", "insert_claim", "nearest_neighbors")),
@@ -1586,15 +1761,19 @@ def modes_phase(dev, feed, chunk: int = 5) -> dict:
     point-to-plane loop ICP; (b) ``process_chunk_deferred`` (chunk 5) with
     the merged2 query and the multi-start loop ICP of ``bench.py:
     bench_kitti_rich`` (5 starts 4 m apart, 12 coarse iterations). Each
-    run goes twice from ``reset()``; gates: every pose finite, more than
-    500 matches in every scan after scan 2 (from scan 3 on: a cached plane
-    needs 5 points in one voxel, so scan 2 against the map of scans 0-1
-    matches only tens of points), a verification, a bit-identical replay,
-    the path's kernels launched and ATE < 0.10 m."""
+    run goes twice from ``reset()``, the cached run's replay with its last
+    ``TRACED_SCANS`` scans traced (device operations a scan); gates: every
+    pose finite, more than 500 matches in every scan after scan 2 (from
+    scan 3 on: a cached plane needs 5 points in one voxel, so scan 2
+    against the map of scans 0-1 matches only tens of points), a
+    verification, a bit-identical replay, the path's kernels launched and
+    ATE < 0.10 m; the cached run's iEKF through ``cached_rows`` (one launch
+    an iteration) and ``query_cached`` launched only by the verifications'
+    point-to-plane normals, the merged2 run without ``cached_rows``."""
     import torch
 
     from fastliosam_tpu_torch.scripts.exp_loop_trust import make_bench_engine
-    from fastliosam_tpu_torch.utils import host_read
+    from fastliosam_tpu_torch.utils import host_read, host_reads
 
     out = {}
     for name, (odom_kw, loop_kw, path, kernels) in MODES.items():
@@ -1602,13 +1781,17 @@ def modes_phase(dev, feed, chunk: int = 5) -> dict:
         engine.odom_cfg = engine.odom_cfg._replace(**odom_kw)
         engine.loop_cfg = engine.loop_cfg._replace(**loop_kw)
         engine.reset()
+        cached = odom_kw.get("query_mode") == "cached"
         if path == "per_scan":
-            def drive():
-                return run_engine(engine, feed, dev, len(feed["stamps"]))
+            def drive(profile_from=None):
+                return run_engine(engine, feed, dev, len(feed["stamps"]),
+                                  profile_from=profile_from)
         else:
-            def drive():
+            def drive(profile_from=None):
                 return run_chunks(engine, feed, dev, chunk, deferred=True)
+        r0 = host_reads()
         run, launches = _launch_counts(drive)
+        reads = host_reads() - r0
         first = (np.stack(engine.realtime_traj), list(engine.loop_pairs))
         matched = host_read(torch.stack(engine.match_counts))
         n_scans = len(engine.realtime_traj)
@@ -1620,10 +1803,12 @@ def modes_phase(dev, feed, chunk: int = 5) -> dict:
             "solves": engine.solve_count, "ate_m": _ate(engine, feed),
             "launches": launches,
             "launches_per_scan": {k: v / n_scans for k, v in launches.items()},
+            "host_reads_per_scan": reads / n_scans,
             "host_syncs_per_verification": (float(np.mean(run["verify_syncs"]))
                                             if n_verify else None),
             "nn_launches_per_verification": (float(np.mean(run["verify_nn"]))
                                              if n_verify else None),
+            "query_cached_in_verifications": int(sum(run["verify_query"])),
             "verify_ms_each": 1e3 * run["verify_s"] / n_verify if n_verify else None,
             "matched_first_scans": matched[:5].tolist(),
             "min_matched_after_scan2": int(matched[3:].min()),
@@ -1631,9 +1816,29 @@ def modes_phase(dev, feed, chunk: int = 5) -> dict:
         }
         finite = bool(np.all(np.isfinite(first[0]))) and bool(
             np.all(np.isfinite(engine.keyframe_poses())))
-        drive()  # the replay
+        # the replay; the cached run's last scans traced (tracing changes no result)
+        replay = drive(profile_from=n_scans - TRACED_SCANS if cached else None)
         result["replay_bit_identical"] = _replay(engine, first)
+        if cached:
+            result["device_ops_per_scan"] = _window_ops(replay)
         print(f"  {name}: " + json.dumps(result))
+        if cached:
+            iters = engine.odom_cfg.max_iteration
+            print(f"  {name}: {result['device_ops_per_scan']:.1f} device ops a scan (the "
+                  f"replay's last {TRACED_SCANS} scans), {result['host_reads_per_scan']:.3f} "
+                  f"host reads a scan, cached_rows {launches['cached_rows'] / n_scans:.3f} and "
+                  f"query_cached {launches['query_cached'] / n_scans:.3f} launches a scan "
+                  f"({result['query_cached_in_verifications']} of {launches['query_cached']} "
+                  f"query_cached launches in the verifications)")
+            path_gates = {
+                f"cached_rows once an iEKF iteration ({iters} a scan after scan 0)":
+                    launches["cached_rows"] % iters == 0
+                    and iters * (n_scans - 1) <= launches["cached_rows"] <= iters * n_scans,
+                "query_cached launched only by the verifications":
+                    launches["query_cached"] == result["query_cached_in_verifications"],
+            }
+        else:
+            path_gates = {"cached_rows not launched": launches["cached_rows"] == 0}
         _fail(f"modes phase, {name}", {
             "every pose finite": finite,
             "n_matched > 500 after scan 2 (scans 3 on)": result["min_matched_after_scan2"] > 500,
@@ -1641,6 +1846,7 @@ def modes_phase(dev, feed, chunk: int = 5) -> dict:
             "replay bit-identical": result["replay_bit_identical"],
             ", ".join(kernels) + " launched": min(launches[k] for k in kernels) > 0,
             **_no_gather(launches),
+            **path_gates,
             "ATE < 0.10 m": result["ate_m"] < 0.10,
         })
         out[name] = result
@@ -1686,7 +1892,7 @@ def gps_phase(dev, feed, chunk: int = 5):
         "ATE with GPS < 2.0 m": result["ate_gps_on_m"] < 2.0,
         "merged_moments and insert_claim launched":
             launches["merged_moments"] > 0 and launches["insert_claim"] > 0,
-        **_no_gather(launches),
+        **_default_path(launches),
     })
     return result, (engine.keyframe_stamps().astype(np.float64),
                     engine.keyframe_poses()[:, :3, 3].astype(np.float64))
@@ -1776,7 +1982,7 @@ def kitti_longrun_phase(dev, root: str, chunk: int = 5):
         "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
             min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
-        **_no_gather(launches),
+        **_default_path(launches),
     })
     return result, engine
 
@@ -1950,7 +2156,7 @@ def localize_phase(dev, root: str, bundle: str, ref_pose, n_scans: int = 200):
         "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
             min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
                                       "insert_claim")) > 0,
-        **_no_gather(launches),
+        **_default_path(launches),
     })
     return result, loc
 
@@ -2293,7 +2499,7 @@ def bag_phase(dev, feed_dir: str) -> dict:
         "merged_moments, insert_claim, refresh_planes and nearest_neighbors launched":
             min(launches[k] for k in ("merged_moments", "insert_claim", "refresh_planes",
                                       "nearest_neighbors")) > 0,
-        **_no_gather(launches),
+        **_default_path(launches),
     })
 
     argv = ["--dataset", "mulran", "--root", str(d / "mulran"), "--use-gps",
@@ -2542,8 +2748,11 @@ def batched_phase(dev, feed, floor) -> dict:
                                                         launches["insert_claim"]) > 0,
         "merged_moments and insert_claim launch as often a step at 8 lanes as at 1":
             all(v["lanes_8"] == v["lanes_1"] for v in per_step.values()),
-        "cached mode: query_cached, refresh_planes and insert_claim launched":
-            min(c_launches[k] for k in ("query_cached", "refresh_planes", "insert_claim")) > 0,
+        "cached mode: cached_rows, refresh_planes and insert_claim launched":
+            min(c_launches[k] for k in ("cached_rows", "refresh_planes", "insert_claim")) > 0,
+        "cached mode: query_cached not launched (its probe is in cached_rows)":
+            c_launches["query_cached"] == 0,
+        "merged3 batch: cached_rows not launched": launches["cached_rows"] == 0,
         "gather_rows not launched (both batches)":
             launches["gather_rows"] == 0 and c_launches["gather_rows"] == 0,
         "cached mode: ATE < max(0.10 m, the reference's + 0.01 m) in every lane":
@@ -2735,6 +2944,8 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
                                 for b in range(lanes)) for (xyz,) in q_sets]))
     out["query_cached"] = record("query_cached", f"{lanes} lanes x 8192 queries, {probes} probes",
                                  ms, plain_ms, nbytes)
+    out["cached_rows"] = check_cached_rows_lanes(dev, feed, aux, firsts, cm, map_cfg, record,
+                                                 reps)
     g_sets = [(insert_cuda.insert_claim_cuda(m.fp, m.coords, m.moments, x, k, vs, rounds,
                                              maxp)[2],) for x, k in pts]
     for (sl,) in g_sets:
@@ -2775,6 +2986,68 @@ def check_lane_kernels(dev, feed, fin, aux, cfg, map_cfg, firsts, floor, reps: i
         dev, f"({lanes}, 2^{c.bit_length() - 1}, 10) x ({lanes}, 8192) int64 slots, "
         "lane-major (the cached batch)", rp_sets, map_cfg, floor["1_blocks"])
     return out
+
+
+def check_cached_rows_lanes(dev, feed, aux, firsts, cm, map_cfg, record, reps: int) -> dict:
+    """``cached_rows`` at the cached batch's lane shape: each lane's scan
+    downsampled to 8192 body points at the lane's pose, against the lanes'
+    2^19-slot maps with their planes fitted (``cm``), one launch with a
+    per-lane device flag (even lanes probe, odd lanes carry the association
+    of a probe 10 cm away): bit for bit against the lane-batched plain
+    version and, lane by lane, against the unbatched kernel. Timed over
+    ``reps`` fresh input sets beside the plain version and its bound."""
+    import torch
+
+    from fastliosam_tpu_torch.core.voxel import hash_slot, voxel_coords
+    from fastliosam_tpu_torch.odom import OdomConfig
+    from fastliosam_tpu_torch.ops import cached_rows_cuda as crc
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    oc = OdomConfig()
+    tail = (map_cfg.voxel_size, map_cfg.query_probes, oc.point_cov, oc.max_residual,
+            oc.degen_conf_ratio)
+    lanes = cm.fp.shape[0]
+    table = (cm.fp, cm.normal, cm.d, cm.plane_valid)
+    flag = (torch.arange(lanes, device=dev) % 2) == 0
+
+    def words(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    sets = []
+    for back in range(reps):
+        k = aux["p"].shape[1] - 1 - back
+        body = [_downsampled_body(feed, f + k, dev) for f in firsts]
+        pts = torch.stack([b[0] for b in body]).contiguous()
+        mask = torch.stack([b[1] for b in body]).contiguous()
+        R, p = aux["R"][:, k].contiguous(), aux["p"][:, k].contiguous()
+        away = crc.cached_rows_cuda(R, p + 0.1, pts, mask, table, None, True, *tail)
+        args = (R, p, pts, mask, table, away.slots, flag)
+        got = crc.cached_rows_cuda(*args, *tail)
+        want = crc.cached_rows_ref(*args, *tail)
+        ok = all(g.shape == w.shape and torch.equal(words(g), words(w))
+                 for g, w in zip(got, want))
+        for b in range(lanes):
+            one = crc.cached_rows_cuda(R[b], p[b], pts[b], mask[b], tuple(t[b] for t in table),
+                                       away.slots[b], bool(flag[b]), *tail)
+            ok = ok and all(torch.equal(words(g[b]), words(o)) for g, o in zip(got, one))
+        torch.cuda.synchronize()
+        if not ok:
+            raise AssertionError("cached_rows at lanes: kernel, plain version and the unbatched "
+                                 "kernel per lane differ")
+        sets.append(args)
+    ms = device_ms(lambda *a: crc.cached_rows_cuda(*a, *tail), sets)
+    plain_ms = device_ms(lambda *a: crc.cached_rows_ref(*a, *tail), sets)
+    nbytes = []
+    for a in sets:
+        rows = crc.cached_rows_ref(*a, *tail)
+        h0 = hash_slot(voxel_coords(a[2] @ a[0].mT + a[1][:, None], map_cfg.voxel_size),
+                       map_cfg.capacity).cpu().numpy()
+        nbytes.append(crc.hbm_bytes(rows, table, a[3], flag, h0, map_cfg.query_probes))
+    return record("cached_rows", f"{lanes} lanes x 8192 body points, {map_cfg.query_probes} "
+                  "probes, even lanes probing", ms, plain_ms, float(np.mean(nbytes)),
+                  n_matched_mean=float(np.mean([float(crc.cached_rows_ref(*a, *tail)
+                                                      .n_matched.float().mean())
+                                                for a in sets])))
 
 
 # ---------------------------------------------------------------------------
@@ -3943,6 +4216,7 @@ def main(argv=None) -> int:
             kernels["merged_moments"] = check_assoc(dev, fig8, fig8_map)
             kernels["insert_claim"] = check_insert(dev, fig8, fig8_map)
             kernels["query_cached"] = check_query(dev, fig8, fig8_map)
+            kernels["cached_rows"] = check_cached_rows(dev, fig8, fig8_map, floor["1_blocks"])
             del fig8_map
             _phase_s(3, "kernels (figure-8 map)", time.perf_counter() - t0)
             t0 = time.perf_counter()

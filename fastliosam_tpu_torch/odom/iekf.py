@@ -14,6 +14,13 @@ one: the same result for one more association pass per gated iteration
 that the gate would have skipped. Linear algebra uses the ``*_ex`` forms,
 which skip the error check that would otherwise sync with the device.
 
+In the cached query mode (without a ``query_fn``) each iteration is one
+call of :func:`ops.cached_rows_cuda.cached_rows`: the probe, the cached
+plane read and every per-point row in one launch, with the association
+carried between iterations as slots. Its gate is a device flag on every
+path, which the kernel reads and skips the probe where it is false: no
+host read, and no extra association pass, per gated iteration.
+
 :func:`iekf_update` also takes B lanes at once (the batched rollout,
 ``eval/batch_eval.py``): a batched state, ``(B, n)`` points and a
 lane-major map. Every operation runs over the leading lane dim, each lane
@@ -26,38 +33,35 @@ import torch
 
 from ..core.eigh3 import eigh3
 from ..map import voxel_hash as vh
+from ..ops.cached_rows_cuda import cached_rows
 from ..utils.sync import host_read
 from .state import NavState, OdomConfig, boxminus, boxplus, matvec
 
 
+# the merged query modes; any other mode is the cached single-voxel query,
+# whose planes carry no moment record (rvar = 0): :func:`cached_rows`
+_MERGED = {"merged": vh.query_planes_merged, "merged2": vh.query_planes_merged2,
+           "merged3": vh.query_planes_merged3}
+
+
 def _query_planes(x, pts_body, mask, vmap, map_cfg, cfg: OdomConfig, query_fn=None):
-    """``(normal, d, valid, rvar)`` of each point's plane at state ``x``;
-    ``rvar`` is 0 in the cached single-voxel mode, whose stored planes carry
-    no moment record. Batched states take ``(B, n, 3)`` points and a
-    lane-major map. ``query_fn`` overrides the map query (the slot-sharded
-    map, ``parallel/sharded_odom.py``)."""
+    """``(normal, d, valid, rvar)`` of each point's plane at state ``x`` in
+    a merged mode, or through ``query_fn``, which overrides the map query
+    (the slot-sharded map, ``parallel/sharded_odom.py``). Batched states
+    take ``(B, n, 3)`` points and a lane-major map."""
     pw = pts_body @ x.R.mT + x.p[..., None, :]
     if query_fn is not None:
         return query_fn(vmap, map_cfg, pw, mask)
-    if cfg.query_mode == "merged":
-        return vh.query_planes_merged(vmap, map_cfg, pw, mask)
-    if cfg.query_mode == "merged2":
-        return vh.query_planes_merged2(vmap, map_cfg, pw, mask)
-    if cfg.query_mode == "merged3":
-        return vh.query_planes_merged3(vmap, map_cfg, pw, mask)
-    n, d, valid = vh.query_planes(vmap, map_cfg, pw, mask)
-    return n, d, valid, torch.zeros(valid.shape, dtype=torch.float32, device=valid.device)
+    return _MERGED[cfg.query_mode](vmap, map_cfg, pw, mask)
 
 
-def _degeneracy_remap(G, bvec, n, valid, rvar, cfg: OdomConfig, eye3):
+def _degeneracy_remap(G, bvec, n, wc, nwc, cfg: OdomConfig, eye3):
     """Project the translation block of the measurement system onto its
-    observable subspace, from confident evidence only (see the JAX
-    docstring); over leading lane dims."""
+    observable subspace, from confident evidence only (the weights ``wc``
+    of the confident matches and ``nwc = n * wc``; see the JAX docstring);
+    over leading lane dims."""
     dev = G.device
-    wc = (
-        valid & (rvar < cfg.degen_conf_ratio * cfg.point_cov)
-    ).to(torch.float32) * (1.0 / cfg.point_cov)
-    Gt = (n * wc[..., None]).mT @ n
+    Gt = nwc.mT @ n
     lam, V = eigh3(0.5 * (Gt + Gt.mT))
     scale = torch.clamp(torch.sum(wc, dim=-1), min=1e-6)
     thr = (cfg.degen_rel_thresh * scale)[..., None]
@@ -75,8 +79,7 @@ def _degeneracy_remap(G, bvec, n, valid, rvar, cfg: OdomConfig, eye3):
 
 def _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg: OdomConfig, eye3):
     """One iteration's MAP step at the association ``planes``: residuals
-    and weights, the Jacobian's Gram matrix and rhs (with the degeneracy
-    remap), the 24x24 solve. Returns ``(x_next, dx, S, valid)``."""
+    and weights, then :func:`_solve`. Returns ``(x_next, dx, S, valid)``."""
     plane_n, plane_d, assoc, rvar = planes
     pw = q_b @ x.R.mT + x.p[..., None, :]
     n = plane_n
@@ -91,10 +94,22 @@ def _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg: OdomConfig, eye3):
         cols.append(v)
     A = torch.cat(cols, dim=-1)
     Aw = A * w[..., None]
+    wc = nwc = None
+    if cfg.degen_rel_thresh > 0.0:
+        wc = (
+            valid & (rvar < cfg.degen_conf_ratio * cfg.point_cov)
+        ).to(torch.float32) * (1.0 / cfg.point_cov)
+        nwc = n * wc[..., None]
+    return (*_solve(x, x_prop, P_inv, n, r, A, Aw, wc, nwc, cfg, eye3), valid)
+
+
+def _solve(x, x_prop, P_inv, n, r, A, Aw, wc, nwc, cfg: OdomConfig, eye3):
+    """The Jacobian's Gram matrix and rhs from the rows (with the degeneracy
+    remap), the 24x24 solve. Returns ``(x_next, dx, S)``."""
     G = A.mT @ Aw
     bvec = matvec(Aw.mT, r)
     if cfg.degen_rel_thresh > 0.0:
-        G, bvec = _degeneracy_remap(G, bvec, n, valid, rvar, cfg, eye3)
+        G, bvec = _degeneracy_remap(G, bvec, n, wc, nwc, cfg, eye3)
     # state columns of the Jacobian: pose (0:6) and, when estimated, the
     # extrinsic (18:24) — slices, so nothing is uploaded per scan
     cols_of = [slice(0, 6)] + ([slice(18, 24)] if cfg.extrinsic_est_en else [])
@@ -109,7 +124,7 @@ def _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg: OdomConfig, eye3):
     S = HtRH + P_inv
     rhs = -(Htr + matvec(P_inv, dxi))
     dx = torch.linalg.solve_ex(S, rhs).result
-    return boxplus(x, dx), dx, S, valid
+    return boxplus(x, dx), dx, S
 
 
 def iekf_update(
@@ -132,7 +147,13 @@ def iekf_update(
     P_inv = torch.linalg.inv_ex(x_prop.P).inverse
     x = x_prop
 
-    planes = _query_planes(x, pts_body, mask, vmap, map_cfg, cfg, query_fn)
+    cached = cfg.query_mode not in _MERGED and query_fn is None
+    if cached:
+        pts_body, mask = pts_body.contiguous(), mask.contiguous()
+        table = (vmap.fp, vmap.normal, vmap.d, vmap.plane_valid)
+        slots = None  # the association, carried between iterations
+    else:
+        planes = _query_planes(x, pts_body, mask, vmap, map_cfg, cfg, query_fn)
     # LiDAR-frame points through the propagated extrinsic; the model below
     # re-applies the current extrinsic each iteration
     p_l = (pts_body - x_prop.t_ext[..., None, :]) @ x_prop.R_ext
@@ -145,22 +166,43 @@ def iekf_update(
     n_matched = torch.zeros(mask.shape[:-1], dtype=torch.int32, device=dev)
     for it in range(cfg.max_iteration):
         q_b = p_l @ x.R_ext.mT + x.t_ext[..., None, :] if cfg.extrinsic_est_en else pts_body
-        if 0 < it <= cfg.requery_iters:
-            # adaptive: re-associate only when the previous step moved far
-            # enough to invalidate the association
-            if cfg.requery_thresh <= 0.0:
-                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
-            elif gate_on_device:
-                fresh = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
-                moved = dp_last > cfg.requery_thresh
-                planes = tuple(
-                    torch.where(moved.reshape(moved.shape + (1,) * (a.dim() - moved.dim())), a, b)
-                    for a, b in zip(fresh, planes)
-                )
-            elif bool(host_read(dp_last > cfg.requery_thresh)):  # one host read
-                planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
-        x, dx, S, valid = _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg, eye3)
-        n_matched = torch.sum(valid.to(torch.int32), dim=-1)
+        if cached:
+            # the re-query gate as a device flag that the kernel reads
+            if it == 0 or (it <= cfg.requery_iters and cfg.requery_thresh <= 0.0):
+                probe = True
+            elif it <= cfg.requery_iters:
+                probe = dp_last > cfg.requery_thresh
+            else:
+                probe = False
+            ext = cfg.extrinsic_est_en
+            rows = cached_rows(
+                x.R.contiguous(), x.p.contiguous(), q_b, mask, table, slots, probe,
+                map_cfg.voxel_size, map_cfg.query_probes, cfg.point_cov, cfg.max_residual,
+                cfg.degen_conf_ratio,
+                # the first association probes at the body points, as JAX's
+                q_query=pts_body if it == 0 and ext else None,
+                p_l=p_l if ext else None, R_ext=x.R_ext.contiguous() if ext else None)
+            x, dx, S = _solve(x, x_prop, P_inv, rows.n, rows.r, rows.A, rows.Aw, rows.wc,
+                              rows.nwc, cfg, eye3)
+            n_matched, slots = rows.n_matched, rows.slots
+        else:
+            if 0 < it <= cfg.requery_iters:
+                # adaptive: re-associate only when the previous step moved far
+                # enough to invalidate the association
+                if cfg.requery_thresh <= 0.0:
+                    planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
+                elif gate_on_device:
+                    fresh = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
+                    moved = dp_last > cfg.requery_thresh
+                    planes = tuple(
+                        torch.where(moved.reshape(moved.shape + (1,) * (a.dim() - moved.dim())),
+                                    a, b)
+                        for a, b in zip(fresh, planes)
+                    )
+                elif bool(host_read(dp_last > cfg.requery_thresh)):  # one host read
+                    planes = _query_planes(x, q_b, mask, vmap, map_cfg, cfg, query_fn)
+            x, dx, S, valid = _map_step(x, x_prop, P_inv, q_b, p_l, planes, cfg, eye3)
+            n_matched = torch.sum(valid.to(torch.int32), dim=-1)
         dp_last = (torch.linalg.vector_norm(dx[..., 3:6], dim=-1)
                    + r_max * torch.linalg.vector_norm(dx[..., 0:3], dim=-1))
 

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version."""
 from . import (  # noqa: F401
     assoc_cuda,
+    cached_rows_cuda,
     cluster_cuda,
     gather_cuda,
     insert_cuda,
@@ -12,6 +13,8 @@ from . import (  # noqa: F401
     take_along_cuda,
 )
 from .assoc_cuda import merged_moments, merged_moments_cuda, merged_moments_ref  # noqa: F401
+# (the module's name is also its kernel wrapper's: the package exports the module)
+from .cached_rows_cuda import cached_rows, cached_rows_ref  # noqa: F401
 from .cluster_cuda import voxel_edges, voxel_edges_cuda, voxel_edges_ref  # noqa: F401
 from .gather_cuda import gather_rows, gather_rows_cuda, gather_rows_ref  # noqa: F401
 from .insert_cuda import insert_claim, insert_claim_cuda, insert_claim_ref  # noqa: F401
@@ -37,4 +40,4 @@ from .take_along_cuda import (  # noqa: F401
 # every kernel module: KERNEL (name, route, source, replaces), launches,
 # reset_launches()
 KERNEL_MODULES = (nn_cuda, gather_cuda, take_along_cuda, assoc_cuda, insert_cuda, query_cuda,
-                  kneighbors_cuda, cluster_cuda, plane_fit_cuda, p2pl_cuda)
+                  kneighbors_cuda, cluster_cuda, plane_fit_cuda, p2pl_cuda, cached_rows_cuda)

@@ -31,6 +31,8 @@ order). The replay: two runs equal bit for bit. The bag run through
 ``run_slam``: the path's kernels launch, and its replay with pageable
 uploads equals it bit for bit.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1595,3 +1597,233 @@ def test_icp_p2pl_on_the_kernels_matches_the_plain_versions(cuda_device, monkeyp
     Tp = icp.icp_align_p2pl(ps, mask, dst, dmask, nrm, nvalid, **kw)[0]
     a, b = T1.double().cpu().numpy(), Tp.double().cpu().numpy()
     assert np.abs(a - b).max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the cached-mode iEKF's rows: kernel and plain version bit for bit on every
+# output (the rows, the match count, the association's slots)
+# ---------------------------------------------------------------------------
+from fastliosam_tpu_torch.ops import cached_rows_cuda  # noqa: E402
+
+ROWS_TAIL = (0.5, 2, 0.001, 1.0, 1.0)  # voxel size, probes, point_cov, max_residual, ratio
+
+
+def _words(t):
+    return _bits(t) if t.dtype == torch.float32 else t.cpu().numpy()
+
+
+def _rows_check(args, kw, tail=ROWS_TAIL):
+    before = cached_rows_cuda.launches
+    got = cached_rows_cuda.cached_rows(*args, *tail, **kw)
+    torch.cuda.synchronize()
+    assert cached_rows_cuda.launches == before + 1
+    want = cached_rows_cuda.cached_rows_ref(*args, *tail, **kw)
+    for name, g, w in zip(cached_rows_cuda.CachedRows._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(_words(g), _words(w), err_msg=name)
+    return got
+
+
+@functools.lru_cache(maxsize=1)
+def _figure8_planes(dev):
+    """``_figure8_map`` with the next scan inserted and the planes of its
+    voxels refreshed (the cached mode's map), built once a run."""
+    vh, m, cfg, (xyz, hit) = _figure8_map(dev)
+    m, _ = vh.insert(m, cfg, xyz, hit, refresh_planes=True)
+    return vh, m, cfg, xyz, hit
+
+
+def _rot(w):
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return (np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["probe", "carried", "flag_on", "flag_off", "extrinsic",
+                                  "all_masked", "not_found", "tight"])
+def test_cached_rows_kernel_matches_plain_version(cuda_device, case):
+    """The figure-8 map with its planes refreshed; the next scan's points
+    (ragged 8191 + 77 far points that find nothing, every 13th masked) in
+    the body frame of a pose 2 cm and 3 mrad off: a probe, the association
+    carried from a probe 0.3 m away, the device flag on and off, the
+    extrinsic's columns (probing at the body points), every point masked,
+    only points that find nothing, and a 2^9 table filled past capacity."""
+    dev = cuda_device
+    vh, m, cfg, xyz, hit = _figure8_planes(dev)
+    far = torch.full((77, 3), 900.0, device=dev) + torch.arange(77, device=dev)[:, None]
+    world = torch.cat([xyz[:8191], far])
+    mask = torch.cat([hit[:8191], torch.ones(77, dtype=torch.bool, device=dev)])
+    mask[::13] = False
+    if case == "not_found":
+        world, mask = far, torch.ones(77, dtype=torch.bool, device=dev)
+    if case == "all_masked":
+        mask = torch.zeros_like(mask)
+    if case == "tight":
+        tcfg = vh.VoxelMapConfig(capacity=1 << 9, voxel_size=0.5, min_points=3)
+        m, dropped = vh.insert(vh.make_map(tcfg, dev), tcfg, xyz, hit, refresh_planes=True)
+        assert int(dropped) > 0
+    R_true = torch.from_numpy(_rot([0.02, -0.01, 0.3])).to(dev)
+    p_true = torch.tensor([1.0, -2.0, 0.5], device=dev)
+    pts = ((world - p_true) @ R_true).contiguous()
+    R = (R_true @ torch.from_numpy(_rot([0.003, 0.0, -0.002])).to(dev)).contiguous()
+    p = p_true + torch.tensor([0.02, -0.01, 0.0], device=dev)
+    kw = {}
+    q_b = pts
+    if case == "extrinsic":
+        R_ext = torch.from_numpy(_rot([0.01, 0.02, -0.015])).to(dev)
+        t_ext = torch.tensor([0.05, -0.02, 0.1], device=dev)
+        p_l = ((pts - t_ext) @ R_ext).contiguous()
+        q_b = (p_l @ R_ext.mT + t_ext).contiguous()
+        kw = {"p_l": p_l, "R_ext": R_ext}
+    table = (m.fp, m.normal, m.d, m.plane_valid)
+    R0 = (R @ torch.from_numpy(_rot([0.0, 0.0, 0.02])).to(dev)).contiguous()
+    p0 = p + torch.tensor([0.3, 0.0, 0.0], device=dev)
+    first = _rows_check((R0, p0, q_b, mask, table, None, True),
+                        dict(kw, q_query=pts if case == "extrinsic" else None))
+    probe = {"carried": False, "flag_on": torch.tensor(True, device=dev),
+             "flag_off": torch.tensor(False, device=dev)}.get(case, True)
+    got = _rows_check((R, p, q_b, mask, table, first.slots, probe), kw)
+    n_valid = int(got.n_matched)
+    assert n_valid == int(got.valid.sum())
+    if case in ("all_masked", "not_found"):
+        assert n_valid == 0 and not bool((got.slots >= 0).any())
+        assert torch.equal(got.n, m.normal[0].expand_as(got.n))  # slot 0's row
+    else:
+        assert n_valid > (0 if case == "tight" else 1000) and not bool(got.valid[-77:].any())
+    again = cached_rows_cuda.cached_rows(R, p, q_b, mask, table, first.slots, probe, *ROWS_TAIL,
+                                         **kw)
+    for g, a in zip(got, again):  # the same words from launch to launch
+        np.testing.assert_array_equal(_words(g), _words(a))
+
+
+def _plane_lane_maps(lanes, cap=1 << 12, seed=3):
+    """``lanes`` CPU-built maps with their planes fitted, stacked lane-major."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    cfg = vh.VoxelMapConfig(capacity=cap, voxel_size=0.5, min_points=3)
+    rng = np.random.default_rng(seed)
+    maps = []
+    for b in range(lanes):
+        pts = rng.uniform(-6, 6, size=(3000, 3)).astype(np.float32)
+        pts[:1500, 2] = -1.0 + 0.05 * b  # a floor and a wall per lane
+        pts[1500:, 0] = 4.0 - 0.1 * b
+        m, _ = vh.insert(vh.make_map(cfg, "cpu"), cfg, torch.from_numpy(pts),
+                         torch.ones(3000, dtype=torch.bool), refresh_planes=True)
+        maps.append(m)
+    return vh.VoxelMap(*(torch.stack(f) for f in zip(*maps)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,ext", [(1, 3001, False), (3, 3001, False), (3, 3001, True),
+                                         (8, 8192, False)])
+def test_cached_rows_kernel_lanes(cuda_device, lanes, n, ext):
+    """One launch for all lanes, a per-lane flag (every other lane probes):
+    bit for bit against the lane-batched plain version and, lane by lane,
+    against the unbatched kernel on that lane's table alone."""
+    dev = cuda_device
+    lm = _plane_lane_maps(lanes)
+    m = type(lm)(*(t.to(dev) for t in lm))
+    rng = np.random.default_rng(lanes + n)
+    world = rng.uniform(-6, 6, size=(lanes, n, 3)).astype(np.float32)
+    world[:, : n // 2, 2] = -1.0
+    world[:, n // 2:, 0] = 4.0
+    R = torch.from_numpy(np.stack([_rot([0.01 * b + 0.001, 0.002, 0.1]) for b in range(lanes)]))
+    p = torch.from_numpy(rng.normal(size=(lanes, 3)).astype(np.float32) * 0.1)
+    pts = torch.einsum("bnk,bkj->bnj", torch.from_numpy(world) - p[:, None], R).contiguous()
+    R, p, pts = R.to(dev), (p + 0.01).to(dev), pts.to(dev)
+    mask = torch.from_numpy(rng.uniform(size=(lanes, n)) > 0.1).to(dev)
+    kw = {}
+    if ext:
+        R_ext = torch.stack([torch.from_numpy(_rot([0.01, 0.0, 0.02 * b + 0.01]))
+                             for b in range(lanes)]).to(dev)
+        kw = {"p_l": (pts @ R_ext).contiguous(), "R_ext": R_ext}
+    table = (m.fp, m.normal, m.d, m.plane_valid)
+    first = _rows_check((R, p + 0.3, pts, mask, table, None, True), kw)
+    flag = (torch.arange(lanes, device=dev) % 2) == 0
+    got = _rows_check((R, p, pts, mask, table, first.slots, flag), kw)
+    assert got.n_matched.shape == (lanes,) and int(got.n_matched.min()) > 0
+    for b in range(lanes):
+        one_kw = {k: v[b] for k, v in kw.items()}
+        one = cached_rows_cuda.cached_rows_cuda(
+            R[b], p[b], pts[b], mask[b], tuple(t[b] for t in table), first.slots[b],
+            bool(flag[b]), *ROWS_TAIL, **one_kw)
+        for g, o in zip(got, one):
+            np.testing.assert_array_equal(_words(g[b]), _words(o))
+
+
+@pytest.mark.cuda
+def test_cached_rows_kernel_rejects_bad_inputs(cuda_device):
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+
+    dev = cuda_device
+    m = vh.make_map(vh.VoxelMapConfig(capacity=1 << 10), dev)
+    R, p = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    q = torch.zeros((16, 3), device=dev)
+    mask = torch.ones(16, dtype=torch.bool, device=dev)
+    table = (m.fp, m.normal, m.d, m.plane_valid)
+    slots = torch.zeros(16, dtype=torch.int32, device=dev)
+    ok = (R, p, q, mask, table, slots, True)
+    bad = [
+        ((R.double(),) + ok[1:], {}),
+        ((R.t(),) + ok[1:], {}),  # not contiguous
+        (ok[:2] + (q[:, :2].contiguous(),) + ok[3:], {}),
+        (ok[:3] + (mask[:8].contiguous(),) + ok[4:], {}),  # point count
+        (ok[:4] + ((m.fp[:1000].contiguous(),) + table[1:],) + ok[5:], {}),  # capacity
+        (ok[:4] + ((m.fp, m.normal, m.d, m.plane_valid.bool()),) + ok[5:], {}),
+        (ok[:5] + (slots.long(),) + ok[6:], {}),
+        (ok[:5] + (None, False), {}),  # no slots to carry
+        (ok[:6] + (torch.ones(2, dtype=torch.bool, device=dev),), {}),  # flag per lane
+        (ok[:6] + (1,), {}),
+        (ok, {"p_l": q}),  # p_l without R_ext
+        (ok, {"q_query": q.cpu()}),  # device
+        ((R.cpu(),) + ok[1:], {}),
+    ]
+    for args, kw in bad:
+        with pytest.raises(ValueError):
+            cached_rows_cuda.cached_rows_cuda(*args, *ROWS_TAIL, **kw)
+    for probes in (0, 9):
+        with pytest.raises(ValueError):
+            cached_rows_cuda.cached_rows_cuda(*ok, 0.5, probes, 0.001, 1.0, 1.0)
+    cached_rows_cuda.cached_rows_cuda(*ok, *ROWS_TAIL)  # and the good call goes through
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate_on_device", [False, True])
+def test_cached_iekf_on_the_card_equals_its_composition(cuda_device, gate_on_device):
+    """``iekf_update`` in the cached mode on the card: one ``cached_rows``
+    launch an iteration, no ``query_cached`` launch and no host read, and
+    the state and match count bit for bit with its run through the
+    composition it replaced (the cached query and the rows in torch, the
+    plain route of ``query_fn``)."""
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.odom import OdomConfig, iekf_update, init_state
+    from fastliosam_tpu_torch.utils import host_reads
+
+    dev = cuda_device
+    _, m, mcfg, xyz, hit = _figure8_planes(dev)
+    cfg = OdomConfig(query_mode="cached")
+    R_true = torch.from_numpy(_rot([0.0, 0.0, 0.4])).to(dev)
+    p_true = torch.tensor([1.0, -2.0, 0.5], device=dev)
+    pts = ((xyz[:8192] - p_true) @ R_true).contiguous()
+    mask = hit[:8192].contiguous()
+    nav = init_state(cfg=cfg, device=dev)._replace(
+        R=(R_true @ torch.from_numpy(_rot([0.004, -0.003, 0.002])).to(dev)).contiguous(),
+        p=p_true + torch.tensor([0.15, -0.1, 0.05], device=dev))
+
+    def old_route(vmap, map_cfg, pw, msk):
+        n, d, valid = vh.query_planes(vmap, map_cfg, pw, msk)
+        return n, d, valid, torch.zeros(valid.shape, dtype=torch.float32, device=valid.device)
+
+    r0, q0, c0 = host_reads(), query_cuda.launches, cached_rows_cuda.launches
+    x, n_matched = iekf_update(nav, pts, mask, m, mcfg, cfg, gate_on_device=gate_on_device)
+    torch.cuda.synchronize()
+    assert host_reads() == r0 and query_cuda.launches == q0
+    assert cached_rows_cuda.launches == c0 + cfg.max_iteration
+    ox, on = iekf_update(nav, pts, mask, m, mcfg, cfg, gate_on_device=gate_on_device,
+                         query_fn=old_route)
+    for a, b in zip(x, ox):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(n_matched) == int(on) > 1000

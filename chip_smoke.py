@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``fastliosam_tpu_torch``) on one
 NVIDIA GPU — the quickest proof that the port still builds and runs there.
 
-    python3 chip_smoke.py [--scans 150] [--corridor-scans 200] [--out results.json]
+    python3 chip_smoke.py [--scans 150] [--corridor-scans 100] [--out results.json]
                           [--profile-scans N]
 
 Phases, each of which fails the script (non-zero exit) if it fails:
@@ -10,9 +10,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      generating in two worker processes (tens of seconds of host time,
      cached under build/; ``sim/world.py`` casts each time group of rays
      only against the rectangles it can reach, bit for bit the dense
-     cast's), the recording of phase 9 after them in one of the two (at
-     nice 10), and the KITTI sequence of phase 8 in its own worker
-     processes;
+     cast's), the recording of phase 9 and the feeds of phases 14 and 16
+     (``eval/feeds.py``) after them (at nice 10), and the KITTI sequence
+     of phase 8 in its own worker processes;
   2. build every CUDA kernel of the package from ``fastliosam_tpu_torch/csrc``
      (one nvcc per source, all started together) into ``build/kernels/``;
   3. kernel phase: the timing floor first (an empty kernel, ``csrc/empty.cu``,
@@ -69,7 +69,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      least one loop, at most one host read per chunk for odometry and
      keyframing;
   6. GPS phase: the bench's GPS corridor (``bench.py:
-     build_corridor_sequence`` and ``bench_gps_corridor``; 200 of its 400
+     build_corridor_sequence`` and ``bench_gps_corridor``; 100 of its 400
      scans by default, to keep the script inside its time), fixes through
      WGS84 geodesy, ``process_chunk`` with GPS on (the GPS-off run, which
      gated nothing, was cut to make room for phase 11): at least two GPS
@@ -90,8 +90,8 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      upload, chunk 5, deferred), with a loop audit against ground truth,
      and the same run loop-free;
      ``save_results`` with its files checked;
-     a checkpoint at scan 300 that a restored engine must continue over
-     scans 300-400 bit for bit with the engine that saved it;
+     a checkpoint at scan 150 that a restored engine must continue over
+     scans 150-250 bit for bit with the engine that saved it;
      ``MapLocalizer`` on the exported bundle (global init from a pose
      perturbed by 1 m and 5 degrees, 200 scans, every step matching
      points); and the NN, insert and plane refresh against their plain
@@ -246,7 +246,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      window equal to its four gathers; every gather equal to the same
      function's result on the CPU bit for bit. Each line is printed beside
      the card's name and power limit;
- 15. scaling phase, last, the port of the JAX scripts that sweep device
+ 15. scaling phase, the port of the JAX scripts that sweep device
      counts, each through its ``main(argv)``: ``bench_scaling.py
      --keyframes 1024 --devices 1 4`` (the factor-sharded solve, the
      point-sharded loop ICP at its full 16,384 points, so the NN at 4096 x
@@ -273,6 +273,44 @@ Phases, each of which fails the script (non-zero exit) if it fails:
      ``bench_crossover``, ``bench_pp_overlap``). On one card the sweeps
      measure the sharding machinery's cost (gloo collectives through host
      memory), not scaling.
+ 16. bench-configurations phase, last, ``bench.py``'s reference-exact and
+     adversarial configurations through ``eval/feeds.py`` at full width,
+     each engine run twice from ``reset()`` and replayed bit for bit
+     (trajectory, keyframe poses, loops, solves, GPS factors). The Livox
+     part runs first and alone (its kernel timings); then the
+     reference-exact figure-8, the reference-exact corridor and the
+     degraded GPS each in a spawned process of its own, side by side and
+     beside the oracle in this process (their gates are bits and
+     accuracy; their host-clock readings, scans/s and solve ms, are taken
+     beside each other and read high). The parts: the Livox
+     rollout (``make_rollout(data, raw_pts=8192, query_mode="merged",
+     num_ds=4096)`` over the 43-scan rosette feed, ``livox_sequence``; ATE
+     below max(0.10 m, ``LIVOX_JAX_ATE_M`` + 1 cm), more than 500 matches a
+     scan from scan 3 on), then ``merged_moments`` (4096 points x the
+     merged stencil's 7 pools x 2 probes) and ``insert_claim`` (4096
+     points, 2 rounds) on its own map after 33 scans, bit for bit with
+     their plain versions, timed beside the floor, the bound and the plain
+     time (``at_livox_shape`` in the kernels line); the reference-exact
+     figure-8 (``make_refexact(256, 512, 64)`` over the bench's 150-scan
+     feed, chunk 5: a keyframe every moving scan, a solve in each chunk
+     that adds one, no loop, ATE < 0.10 m) and one ``verify_loop`` with
+     ``LoopConfig.reference_exact(submap_points=16384)`` between its last
+     keyframe and the nearest one within 10 m and 4 s before (no surfel
+     map: no ``refresh_planes`` or ``query_cached``; sqrt information
+     1/sqrt(fitness) on all six axes; twice, bit for bit); the
+     reference-exact corridor with GPS (``make_refexact(512, 1024, 64,
+     use_gps=True)``, the corridor feed's first ``REFEXACT_CORRIDOR_SCANS``
+     scans: at least 2 GPS factors and 2 solves, a solve in each chunk that
+     adds a keyframe, the ATE printed beside the JAX package's CPU reading
+     at that depth, not gated: the corridor is chaotic); the degraded GPS
+     (``bench_gps_degraded`` on the bench's figure-8 engine after one
+     deferred run for its pipeline ATE: at least one factor, none from a
+     fix in the degraded middle third, ATE < 0.10 m; ``within_2x`` and its
+     margin printed, not gated); and the long-run oracle
+     (``exp_loop_trust.longrun_oracle``) on phase 8's loop-free engine
+     (loops injected, the solved keyframe ATE below the odometry's,
+     finite; the solve's seconds printed). Launches under
+     ``launches_by_path`` ``bench_*``.
 Every kernel's launch count is set to 0 just before each path and read
 just after; each kernel must have launched on its path (the nearest
 neighbours and the plane refresh (the loop closure's surfel map) on the
@@ -290,7 +328,9 @@ point-to-plane kernels); the k-NN and the neighbour-voxel
 kernel on the postprocess path of phase 12; the association, the insert
 and the row gather on the stages of phase 13 that run them; the NN, the
 plane refresh, the association and the insert on phase 14's full variants;
-the kernels of phase 15's paths as listed there). Phases 4-6
+the kernels of phase 15's paths as listed there; the association and
+the insert on every engine path of phase 16, the NN on its
+reference-exact verification and its degraded-GPS run). Phases 4-6
 and 9 report the insert's, the association's, the plane refresh's and
 the row gather's launches per scan, and device operations per scan over a window traced
 with ``torch.profiler`` (the last 15 scans of the replay in 4 and 5, the
@@ -323,6 +363,7 @@ ROOT = Path(__file__).resolve().parent
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores (SXM data sheet)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 KITTI_SCANS = 1160  # the bench's circuit long run (bench.py: LONGRUN_SCANS)
+CORRIDOR_SCANS = 100  # of the bench's 400 GPS corridor scans: the time limit
 # traced windows (device operations per scan; tracing slows the host ~5x
 # while it runs): the last scans of the figure-8 replays (phases 4 and 5),
 # the GPS run's last chunks (phase 6) and the bag replay's last scans (9)
@@ -1228,6 +1269,33 @@ def _downsampled_world(feed, k, pose, dev, budget: int = 8192):
     return (ds.xyz[:budget] @ pose[:3, :3].T + pose[:3, 3]).contiguous(), ds.mask[:budget]
 
 
+def _insert_equal(name, fp, coords, moments, xyz, mask, vs, rounds, maxp):
+    """The insert's kernel against its plain version on one input, bit for
+    bit on ``fp``, ``coords``, ``sl``, ``n_dropped`` and the ``upd`` rows of
+    the assigned points (the unassigned rows go to the moment scatter's dead
+    segment and are never read); raises where they differ. Returns the
+    kernel's outputs."""
+    import torch
+
+    from fastliosam_tpu_torch.ops import insert_cuda
+
+    got = insert_cuda.insert_claim_cuda(fp, coords, moments, xyz, mask, vs, rounds, maxp)
+    want = insert_cuda.insert_claim_ref(fp, coords, moments, xyz, mask, vs, rounds, maxp)
+    torch.cuda.synchronize()
+    assigned = want[2] < fp.shape[0]
+    same = {
+        "fp": torch.equal(got[0], want[0]), "coords": torch.equal(got[1], want[1]),
+        "sl": torch.equal(got[2], want[2]), "n_dropped": torch.equal(got[4], want[4]),
+        "upd (assigned rows)": torch.equal(got[3][assigned].view(torch.int32),
+                                           want[3][assigned].view(torch.int32)),
+    }
+    bad = [k for k, ok in same.items() if not ok]
+    if bad:
+        raise AssertionError(f"insert_claim {name}: kernel and plain version differ on "
+                             + ", ".join(bad))
+    return got
+
+
 def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
     """The map insert's kernel against its plain version, bit for bit on
     ``fp``, ``coords``, ``sl``, ``n_dropped`` and the ``upd`` rows of the
@@ -1254,22 +1322,7 @@ def check_insert(dev, feed, fig8, n_map_scans: int = 20, reps: int = 10):
             for k in range(n_map_scans, n_map_scans + reps)]
 
     def compare(name, fp, coords, moments, xyz, mask, rnds):
-        got = insert_cuda.insert_claim_cuda(fp, coords, moments, xyz, mask, vs, rnds, maxp)
-        want = insert_cuda.insert_claim_ref(fp, coords, moments, xyz, mask, vs, rnds, maxp)
-        torch.cuda.synchronize()
-        cap = fp.shape[0]
-        assigned = want[2] < cap
-        same = {
-            "fp": torch.equal(got[0], want[0]), "coords": torch.equal(got[1], want[1]),
-            "sl": torch.equal(got[2], want[2]), "n_dropped": torch.equal(got[4], want[4]),
-            "upd (assigned rows)": torch.equal(got[3][assigned].view(torch.int32),
-                                               want[3][assigned].view(torch.int32)),
-        }
-        bad = [k for k, ok in same.items() if not ok]
-        if bad:
-            raise AssertionError(f"insert_claim {name}: kernel and plain version differ on "
-                                 + ", ".join(bad))
-        return got
+        return _insert_equal(name, fp, coords, moments, xyz, mask, vs, rnds, maxp)
 
     new_voxels = []
     for xyz, mask in sets:
@@ -1984,7 +2037,7 @@ def kitti_longrun_phase(dev, root: str, chunk: int = 5):
                                       "insert_claim")) > 0,
         **_default_path(launches),
     })
-    return result, engine
+    return result, engine, loop_free
 
 
 def export_phase(engine, out_dir: Path) -> dict:
@@ -2039,7 +2092,7 @@ def _drive_span(engine, stage, c0: int, c1: int, chunk: int, dt: float):
         engine.finish()
 
 
-def resume_phase(dev, root: str, ckpt: Path, split: int = 300, end: int = 400, chunk: int = 5):
+def resume_phase(dev, root: str, ckpt: Path, split: int = 150, end: int = 250, chunk: int = 5):
     """A long-run engine drives scans [0, split) and saves a checkpoint; it
     and a fresh engine restored from that checkpoint then drive [split,
     end) through the same staging code: bit-identical realtime
@@ -2285,13 +2338,14 @@ def check_localizer_shapes(dev, inp, reps: int = 10) -> dict:
     return out
 
 
-def kitti_phase(dev, root: str, chunk: int = 5) -> dict:
+def kitti_phase(dev, root: str, chunk: int = 5) -> tuple:
     """The dataset entry point at the bench's width and depth: the long
     run, its export, the resume and the relocalization, and the kernels at
-    the localizer's shapes."""
+    the localizer's shapes. Returns the results and the loop-free engine
+    (phase 16's oracle starts from it)."""
     out_dir = ROOT / "build" / "kitti_export"
     print(f"  long-run (drive_kitti, chunk {chunk}, q16):")
-    longrun, engine = kitti_longrun_phase(dev, root, chunk)
+    longrun, engine, loop_free = kitti_longrun_phase(dev, root, chunk)
     print("  export (save_results):")
     export, paths = export_phase(engine, out_dir)
     ref_pose = np.asarray(engine.realtime_traj[0])
@@ -2304,7 +2358,7 @@ def kitti_phase(dev, root: str, chunk: int = 5) -> dict:
     shapes = check_localizer_shapes(
         dev, localizer_kernel_inputs(dev, paths["keyframes"], loc, root, ref_pose))
     return {"longrun": longrun, "export": export, "resume": resume, "localize": localize,
-            "kernel_shapes": shapes}
+            "kernel_shapes": shapes}, loop_free
 
 
 # ---------------------------------------------------------------------------
@@ -3741,16 +3795,22 @@ def pipeline_phase(dev) -> dict:
     fig8, seq = feeds.fig8_sequence(PIPE_SCANS), feeds.get_sequence()
 
     ctx = profile_pipeline.setup(fig8, 5, dev)
-    (prof, _), launches["pipeline_profile"] = _launch_counts(
+    (prof, runs), launches["pipeline_profile"] = _launch_counts(
         lambda: profile_pipeline.profile(ctx, PIPE_REPS))
     del ctx
+    # full_deferred is bench.py: bench_pipeline's deferred run from p0: its
+    # ATE is the bench's pipeline_ate_m (phase 16's degraded-GPS yardstick)
+    deferred = runs["full_deferred"]["traj"][:, :3, 3]
+    pipeline_ate = float(np.sqrt(np.mean(np.sum(
+        (deferred - fig8["gt_p"][: len(deferred)]) ** 2, axis=1))))
     v = {name: prof[name] for name, _ in profile_pipeline.VARIANTS}
     for name, rec in v.items():
         print(f"  profile_pipeline {name}: {rec['scans_per_sec']} scans/s, {rec['wall_s']} s, "
               f"keyframes / loops / solves {rec['kf_loops_solves']}, timed = warm "
               f"{rec['replay_equal']}, launches "
               f"{ {k: rec['launches'][k] for k in PIPE_KERNELS} } ({card})")
-    print(f"  profile_pipeline attribution (s): {prof['attribution_s']} ({card})")
+    print(f"  profile_pipeline attribution (s): {prof['attribution_s']}; full_deferred ATE "
+          f"{pipeline_ate:.4f} m ({card})")
     checks = {f"{name}: the timed run equals the warm run": rec["replay_equal"]
               for name, rec in v.items()}
     checks.update({f"{name} launches no gather_rows": rec["launches"]["gather_rows"] == 0
@@ -3827,8 +3887,8 @@ def pipeline_phase(dev) -> dict:
         f"{name} equals the CPU's": same[name] for name in ("narrow", "bucketed")})
     parts_s["microbench_gather"] = time.perf_counter() - t0
     print("  pipeline phase parts (s): " + json.dumps({k: round(v, 1) for k, v in parts_s.items()}))
-    return {"profile": prof, "hop": hop, "noinit": rec_ni, "roofline": roof,
-            "exp_gather_xla": xla, "microbench": mb, "launches": launches,
+    return {"profile": prof, "pipeline_ate_m": pipeline_ate, "hop": hop, "noinit": rec_ni,
+            "roofline": roof, "exp_gather_xla": xla, "microbench": mb, "launches": launches,
             "parts_s": parts_s, "phase_s": time.perf_counter() - t_phase}
 
 
@@ -4091,6 +4151,503 @@ def scaling_phase(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# bench-configurations phase (phase 16): bench.py's reference-exact and
+# adversarial configurations through eval/feeds.py
+# ---------------------------------------------------------------------------
+LIVOX_NUM_DS = 4096  # bench.py: bench_livox's num_ds
+LIVOX_MAP_SCANS = 33  # the Livox shapes' map: the rollout's after these scans
+# the JAX package's Livox ATE on the CPU at full width (tests/test_torch_bench_configs.py:
+# test_livox_jax_reading, slow; JAX on a TPU: 0.008 m, BENCH_r05.json); the
+# port's card reading is gated below max(0.10 m, this + 1 cm)
+LIVOX_JAX_ATE_M = 0.008401
+LIVOX_MARGIN_M = 0.01
+ATE_GATE_M = 0.10  # the figure-8 and Livox feeds' odometry gate (the JAX tests')
+REFEXACT_CORRIDOR_SCANS = 40  # of the corridor feed's (bench: 400): the time limit
+# the JAX package's reference-exact corridor ATE on the CPU at that depth
+# (tests/test_torch_bench_gps.py: test_refexact_corridor_jax_reading, slow;
+# 3 GPS factors, 8 solves); printed beside the card's, not gated
+REFEXACT_CORRIDOR_JAX_ATE_M = 0.177575
+REFEXACT_LOOP_PAIR = (10.0, 4.0)  # the figure-8 pair's gating: the bench engine's
+
+
+def bench_feeds() -> None:
+    """The feed only phase 16 reads (``eval/feeds.py: livox_sequence``),
+    made in a feed worker at nice 10 and cached under ``build/feeds/``."""
+    import os
+
+    from fastliosam_tpu_torch.eval import feeds
+
+    os.nice(10)
+    feeds.livox_sequence()
+
+
+def _twice(run, snap):
+    """``run()`` twice (each from ``reset()``): the first with every launch
+    count set to 0 before it and read after it, ``snap()`` after each.
+    Returns the first run's result, its launches, both snapshots and the
+    second run's host seconds (from and to a drained queue)."""
+    import torch
+
+    torch.cuda.synchronize()
+    first, launches = _launch_counts(run)
+    a = snap()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    return first, launches, a, snap(), second_s
+
+
+def _engine_snap(engine):
+    """Everything a replay must repeat bit for bit: the realtime trajectory,
+    keyframe poses, loop pairs, solves and GPS factors."""
+    from fastliosam_tpu_torch.utils import host_read
+
+    n_gps = engine._n_gps_host
+    gps = host_read(engine.graph.gps_idx[:n_gps], engine.graph.gps_xyz[:n_gps])
+    return (np.stack(engine.realtime_traj), engine.keyframe_poses(), list(engine.loop_pairs),
+            engine.solve_count, gps)
+
+
+def _snaps_equal(a, b) -> bool:
+    def eq(x, y):
+        if isinstance(x, (tuple, list)):
+            return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
+        if isinstance(x, np.ndarray):
+            return x.dtype == y.dtype and x.shape == y.shape and np.array_equal(
+                x.view(np.uint8), y.view(np.uint8))
+        return x == y
+    return eq(a, b)
+
+
+def _chunks_with_keyframes(engine, feed, chunk: int) -> int:
+    """How many chunks added a keyframe (each keyframe's stamp to its scan)."""
+    kf_st = engine.keyframe_stamps().astype(np.float64)
+    scans = np.argmin(np.abs(np.asarray(feed["stamps"])[None, :] - kf_st[:, None]), axis=1)
+    return len(set((scans // chunk).tolist()))
+
+
+def livox_part(dev, floor) -> dict:
+    """The Livox rollout (``bench.py: bench_livox``): ``make_rollout(data,
+    raw_pts=8192, query_mode="merged", num_ds=4096)`` over the 43-scan
+    rosette feed from the true start, twice (bit for bit), then the
+    association and the insert at its shapes on its own map."""
+    from fastliosam_tpu_torch.eval import feeds
+    from fastliosam_tpu_torch.utils import host_read
+
+    data = feeds.livox_sequence()
+    ctx = feeds.make_rollout(data, raw_pts=feeds.LIVOX_PTS, query_mode="merged",
+                             num_ds=LIVOX_NUM_DS, device=dev)
+    out = {}
+
+    def run():
+        out["aux"] = ctx["roll"](ctx["gt_state"](), ctx["scans"], ctx["imus"])[1]
+
+    def snap():
+        return host_read(out["aux"]["R"], out["aux"]["p"], out["aux"]["n_matched"])
+
+    _, launches, a, b, second_s = _twice(run, snap)
+    R, p, matched = a
+    S = ctx["S"]
+    ate = float(np.sqrt(np.mean(np.sum((p - data["gt_p"][:S]) ** 2, axis=1))))
+    gate = max(ATE_GATE_M, LIVOX_JAX_ATE_M + LIVOX_MARGIN_M)
+    result = {"scans": S, "raw_pts": feeds.LIVOX_PTS, "num_ds": LIVOX_NUM_DS,
+              "query_mode": "merged", "ate_m": ate, "ate_gate_m": gate,
+              "scans_per_s": S / second_s, "min_matched_after_scan2": int(matched[2:].min()),
+              "replay_bit_identical": _snaps_equal(a, b), "launches": launches}
+    print("  livox " + json.dumps(result))
+    print(f"  livox ATE {ate:.4f} m (JAX on the CPU {LIVOX_JAX_ATE_M} m; accuracy reference, "
+          f"JAX on a TPU: 0.008 m), {result['scans_per_s']:.2f} scans/s ({card_line()})")
+    _fail("bench configurations, livox", {
+        "every pose finite": bool(np.all(np.isfinite(p)) and np.all(np.isfinite(R))),
+        f"ATE < {gate:.4f} m": ate < gate,
+        "n_matched > 500 after scan 2": result["min_matched_after_scan2"] > 500,
+        "replay bit-identical": result["replay_bit_identical"],
+        "merged_moments and insert_claim launched":
+            launches["merged_moments"] > 0 and launches["insert_claim"] > 0,
+        **_default_path(launches),
+    })
+    poses = np.tile(np.eye(4, dtype=np.float32), (S, 1, 1))
+    poses[:, :3, :3], poses[:, :3, 3] = R, p
+    result["kernels"] = check_livox_shapes(dev, data, ctx, poses, floor, launches)
+    return result
+
+
+def check_livox_shapes(dev, data, ctx, poses, floor, launches, reps: int = 10) -> dict:
+    """``merged_moments`` (4096 downsampled points x the merged stencil's 7
+    pools x 2 probes) and ``insert_claim`` (4096 points, 2 rounds) against
+    their plain versions, bit for bit, on the Livox rollout's own 2^19-slot
+    map after ``LIVOX_MAP_SCANS`` scans, with the downsampled points of the
+    next ``reps`` scans at the rollout's poses; each timed over those sets
+    beside the timing floor, its HBM byte bound and its plain version.
+    Printed under ``at_livox_shape`` in the kernels line."""
+    import torch
+
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.odom import ImuBatch, Scan
+    from fastliosam_tpu_torch.ops import assoc_cuda, insert_cuda
+    from fastliosam_tpu_torch.utils.timing import device_ms
+
+    k0 = LIVOX_MAP_SCANS
+    st, _ = ctx["roll"](ctx["gt_state"](), Scan(*(t[:k0] for t in ctx["scans"])),
+                        ImuBatch(*(t[:k0] for t in ctx["imus"])))
+    m, cfg = st.vmap, ctx["map_cfg"]
+    vs, probes = cfg.voxel_size, cfg.query_probes
+    rounds, maxp = max(cfg.insert_probes, cfg.claim_probes), cfg.max_points_per_voxel
+    fp_np = m.fp.cpu().numpy()
+    pts = [_downsampled_world(data, k, poses[k], dev, budget=LIVOX_NUM_DS)
+           for k in range(k0, k0 + reps)]
+    floor_ms = floor["1_blocks"]
+    out = {}
+
+    def record(name, shape, ms, plain_ms, nbytes):
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        print(f"  {name} at the Livox shape, {shape}: equal to its plain version; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound {bound:.5f} ms "
+              f"({nbytes:.0f} HBM bytes), floor {floor_ms:.4f} ms, {launches[name]} launches "
+              f"on the Livox rollout ({card_line()})")
+        return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+                "library_note": "none", "timing_floor_ms": floor_ms,
+                "launches": launches[name]}
+
+    sets = []
+    for xyz, mask in pts:
+        coords0, pools = vh.merged_pools(xyz, vs)
+        sets.append((pools, coords0, mask))
+    args, tail = (m.fp, m.moments), (vs, probes)
+    for pools, coords0, mask in sets:
+        got = assoc_cuda.merged_moments_cuda(*args, pools, coords0, mask, *tail)
+        want = assoc_cuda.merged_moments_ref(*args, pools, coords0, mask, *tail)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("merged_moments at the Livox shape: kernel and plain "
+                                 "version differ")
+    ms = device_ms(lambda p, c, k: assoc_cuda.merged_moments_cuda(*args, p, c, k, *tail), sets)
+    plain_ms = device_ms(lambda p, c, k: assoc_cuda.merged_moments_ref(*args, p, c, k, *tail),
+                         sets)
+    nbytes = float(np.mean([assoc_cuda.hbm_bytes(fp_np, p, c, probes) for p, c, _ in sets]))
+    n_pools = sets[0][0].shape[0]
+    out["merged_moments"] = record(
+        "merged_moments", f"{LIVOX_NUM_DS} points x {n_pools} pools x {probes} probes, "
+        f"2^{cfg.capacity.bit_length() - 1} slots", ms, plain_ms, nbytes)
+    for xyz, mask in pts:
+        _insert_equal("at the Livox shape", m.fp, m.coords, m.moments, xyz, mask, vs, rounds,
+                      maxp)
+    fresh = iter([(m.fp.clone(), m.coords.clone()) for _ in range(reps + 3)])
+    ms = device_ms(lambda x, k: insert_cuda.insert_claim_into(*next(fresh), m.moments, x, k, vs,
+                                                              rounds, maxp), pts)
+    plain_ms = device_ms(lambda x, k: insert_cuda.insert_claim_ref(
+        m.fp, m.coords, m.moments, x, k, vs, rounds, maxp), pts)
+    nbytes = float(np.mean([insert_cuda.hbm_bytes(fp_np, x, k, insert_cuda.insert_claim_cuda(
+        m.fp, m.coords, m.moments, x, k, vs, rounds, maxp)[2], vs, rounds) for x, k in pts]))
+    out["insert_claim"] = record(
+        "insert_claim", f"{LIVOX_NUM_DS} points, {rounds} rounds, "
+        f"2^{cfg.capacity.bit_length() - 1} slots", ms, plain_ms, nbytes)
+    return out
+
+
+def refexact_fig8_part(dev, data, chunk: int) -> dict:
+    """The reference-exact figure-8 (``bench.py: bench_reference_exact``):
+    ``make_refexact(256, 512, 64)``, ``process_chunk`` over the bench's 150
+    scans, twice from ``reset()``; then one ``verify_loop`` with
+    ``LoopConfig.reference_exact(submap_points=16384)`` between the last
+    keyframe and its nearest keyframe more than 4 s before within 10 m,
+    twice."""
+    import torch
+
+    from fastliosam_tpu_torch.core import se3
+    from fastliosam_tpu_torch.eval import feeds
+    from fastliosam_tpu_torch.loop import LoopConfig, fetch_closest_keyframe_idx, verify_loop
+    from fastliosam_tpu_torch.utils import host_read
+
+    engine = feeds.make_refexact(256, 512, 64, chunk=chunk, device=dev)
+    feed, _ = feeds._stage_chunks(data, chunk, dev)
+    n = len(feed) * chunk
+
+    def run():
+        feeds._init_engine_at(engine, data)
+        with _Probe(engine) as probe:
+            feeds._run_pipeline(engine, feed)
+        return probe.s["_solve"]
+
+    solve_s, launches, a, b, second_s = _twice(run, lambda: _engine_snap(engine))
+    kf_chunks = _chunks_with_keyframes(engine, data, chunk)
+    result = {"scans": n, "keyframes": engine.kf.n, "solves": engine.solve_count,
+              "chunks_with_keyframes": kf_chunks, "loops": len(engine.loop_pairs),
+              "verifications": len(engine.loop_attempts), "ate_m": _ate(engine, data),
+              "scans_per_s": n / second_s,
+              "solve_ms_each": 1e3 * solve_s / max(engine.solve_count, 1),
+              "replay_bit_identical": _snaps_equal(a, b), "launches": launches}
+    # one verification between real submaps, in the branch without surfels
+    q = engine.kf.n - 1
+    idx, _ = fetch_closest_keyframe_idx(se3.trans(engine.graph.poses), engine.kf.stamps,
+                                        engine.graph.kf_valid, q, *REFEXACT_LOOP_PAIR)
+    c = int(host_read(idx))
+    loop_cfg = LoopConfig.reference_exact(submap_points=16384)
+
+    def verify():
+        return verify_loop(engine.kf.clouds, engine.kf.masks, engine.graph.poses,
+                           engine.graph.kf_valid, q, c, loop_cfg, device=dev)
+
+    if c < 0:
+        raise AssertionError("bench configurations, reference-exact figure-8: no keyframe "
+                             "within 10 m and 4 s of the last one")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, v_launches = _launch_counts(verify)
+    torch.cuda.synchronize()
+    verify_ms = 1e3 * (time.perf_counter() - t0)
+    again = verify()
+    rel, si, acc, fit = host_read(*first)
+    same = all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+               for x, y in zip(first, again))
+    want_si = 1.0 / np.sqrt(max(float(fit), 1e-4))
+    result["verify"] = {"pair": [q, c], "fitness": float(fit), "accepted": bool(acc),
+                        "sqrt_info": si.tolist(), "correction_m": float(np.linalg.norm(
+                            rel[:3, 3] - host_read(se3.between(
+                                engine.graph.poses[q], engine.graph.poses[c]))[:3, 3])),
+                        "ms": verify_ms, "launches": v_launches, "replay_bit_identical": same}
+    print("  reference-exact figure-8 " + json.dumps(result))
+    print(f"  reference-exact figure-8: ATE {result['ate_m']:.4f} m, {engine.kf.n} keyframes, "
+          f"{engine.solve_count} solves of {result['solve_ms_each']:.1f} ms, "
+          f"{len(engine.loop_pairs)} loops, {result['scans_per_s']:.2f} scans/s (accuracy "
+          f"reference, JAX on a TPU: 0.0315 m, 150 keyframes, 30 solves, 0 loops); "
+          f"verify_loop {q} -> {c}: fitness {float(fit):.4f}, accepted {bool(acc)}, "
+          f"{verify_ms:.1f} ms ({card_line()})")
+    _fail("bench configurations, reference-exact figure-8", {
+        "every pose finite": bool(np.all(np.isfinite(a[0])) and np.all(np.isfinite(a[1]))),
+        "a keyframe every moving scan": engine.kf.n == n,
+        "a solve in each chunk that adds a keyframe": engine.solve_count == kf_chunks,
+        "no loop (the 30 s gap is longer than the feed)": not engine.loop_pairs,
+        f"ATE < {ATE_GATE_M} m": result["ate_m"] < ATE_GATE_M,
+        "replay bit-identical": result["replay_bit_identical"],
+        "merged_moments and insert_claim launched":
+            launches["merged_moments"] > 0 and launches["insert_claim"] > 0,
+        **_default_path(launches),
+        "verify_loop: the NN launched": v_launches["nearest_neighbors"] > 0,
+        "verify_loop: no surfel map (no refresh_planes, no query_cached)":
+            v_launches["refresh_planes"] == 0 and v_launches["query_cached"] == 0,
+        "verify_loop: sqrt-info 1/sqrt(fitness) on all six axes": bool(
+            np.all(si == si[0]) and abs(float(si[0]) / want_si - 1.0) < 1e-6),
+        "verify_loop: replay bit-identical": same,
+    })
+    return result
+
+
+def refexact_corridor_part(dev, corridor, chunk: int) -> dict:
+    """The reference-exact corridor with GPS (``bench.py:
+    bench_reference_exact``): ``make_refexact(512, 1024, 64, use_gps=True)``
+    over the corridor feed's first ``REFEXACT_CORRIDOR_SCANS`` scans, fixes
+    through WGS84 geodesy, twice from ``reset()``."""
+    from fastliosam_tpu_torch.eval import feeds
+
+    data = _feed_head(corridor, REFEXACT_CORRIDOR_SCANS)
+    engine = feeds.make_refexact(512, 1024, 64, use_gps=True, chunk=chunk, device=dev)
+    feed, _ = feeds._stage_chunks(data, chunk, dev)
+    fixes = feeds._fixes_from_data(data)
+    n = len(feed) * chunk
+
+    def run():
+        feeds._init_engine_at(engine, data)
+        with _Probe(engine) as probe:
+            feeds._run_pipeline(engine, feed, gps_fixes=fixes)
+        return probe.s["_solve"]
+
+    solve_s, launches, a, b, second_s = _twice(run, lambda: _engine_snap(engine))
+    kf_chunks = _chunks_with_keyframes(engine, data, chunk)
+    result = {"scans": n, "keyframes": engine.kf.n, "gps_factors": int(engine._n_gps_host),
+              "solves": engine.solve_count, "chunks_with_keyframes": kf_chunks,
+              "ate_m": _ate(engine, data), "jax_cpu_ate_m": REFEXACT_CORRIDOR_JAX_ATE_M,
+              "scans_per_s": n / second_s,
+              "solve_ms_each": 1e3 * solve_s / max(engine.solve_count, 1),
+              "replay_bit_identical": _snaps_equal(a, b), "launches": launches}
+    print("  reference-exact corridor " + json.dumps(result))
+    print(f"  reference-exact corridor ({n} scans): ATE {result['ate_m']:.4f} m (JAX on the CPU "
+          f"at this depth {REFEXACT_CORRIDOR_JAX_ATE_M} m; not gated: the corridor is chaotic), "
+          f"{result['gps_factors']} GPS factors, {engine.solve_count} solves of "
+          f"{result['solve_ms_each']:.1f} ms (accuracy reference, JAX on a TPU over 400 scans: "
+          f"1.8376 m, 41 factors, 80 solves) ({card_line()})")
+    _fail("bench configurations, reference-exact corridor", {
+        "every pose finite": bool(np.all(np.isfinite(a[0])) and np.all(np.isfinite(a[1]))),
+        "at least 2 GPS factors": result["gps_factors"] >= 2,
+        "at least 2 solves": engine.solve_count >= 2,
+        "a solve in each chunk that adds a keyframe": engine.solve_count == kf_chunks,
+        "replay bit-identical": result["replay_bit_identical"],
+        "merged_moments and insert_claim launched":
+            launches["merged_moments"] > 0 and launches["insert_claim"] > 0,
+        **_default_path(launches),
+    })
+    return result
+
+
+def degraded_gps_part(dev, data, chunk: int, pipe_ate: float) -> dict:
+    """``bench.py: bench_gps_degraded`` on the bench's figure-8 engine: the
+    middle third of the fixes at a 3 m sigma, Huber GPS residuals (2
+    sigma), 2 m spacing, odometry sqrt information 200 / 1000, twice from
+    ``reset()``; ``pipe_ate`` is the bench's pipeline ATE on the same feed
+    and engine (phase 14's ``full_deferred`` run), the yardstick of
+    ``gps_degraded_within_2x``."""
+    from fastliosam_tpu_torch.eval import feeds
+
+    engine = feeds.make_engine_for(data, chunk=chunk, device=dev)
+    feed, _ = feeds._stage_chunks(data, chunk, dev)
+    n = len(feed) * chunk
+    fixes = feeds._fixes_from_data(data, degrade_middle=True)
+    engine.pgo_cfg = engine.pgo_cfg._replace(gps_huber_delta=2.0)
+    engine.cfg = engine.cfg._replace(use_gps=True, gps_dist_thres=2.0,
+                                     odom_trans_sqrt_info=200.0, odom_rot_sqrt_info=1000.0)
+
+    def run():
+        feeds._init_engine_at(engine, data)
+        with _Probe(engine) as probe:
+            feeds._run_pipeline(engine, feed, gps_fixes=fixes)
+        return probe.s["_solve"]
+
+    solve_s, launches, a, b, second_s = _twice(run, lambda: _engine_snap(engine))
+    n_gps = int(engine._n_gps_host)
+    idx, _ = a[4]
+    kf_st = engine.keyframe_stamps()[idx.astype(np.int64)].astype(np.float64)
+    fix_t = np.asarray([f.stamp for f in fixes])
+    used = np.argmin(np.abs(fix_t[None, :] - kf_st[:, None]), axis=1).tolist()
+    third = len(fixes) // 3
+    ate = _ate(engine, data)
+    margin = 2.0 * pipe_ate - ate
+    result = {"scans": n, "fixes": len(fixes), "gps_factors": n_gps, "fixes_used": used,
+              "degraded": [third, 2 * third], "keyframes": engine.kf.n,
+              "loops": len(engine.loop_pairs), "verifications": len(engine.loop_attempts),
+              "solves": engine.solve_count, "ate_m": ate, "pipeline_ate_m": pipe_ate, "within_2x": bool(margin >= 0.0),
+              "margin_m": margin, "scans_per_s": n / second_s,
+              "solve_ms_each": 1e3 * solve_s / max(engine.solve_count, 1),
+              "replay_bit_identical": _snaps_equal(a, b), "launches": launches}
+    print("  degraded GPS " + json.dumps(result))
+    print(f"  degraded GPS: ATE {ate:.4f} m against the pipeline's {pipe_ate:.4f} m, "
+          f"within_2x {result['within_2x']} (margin {margin:.4f} m; not gated: JAX on a TPU "
+          f"fails it), {n_gps} of {len(fixes)} fixes (accuracy reference, JAX on a TPU: "
+          f"0.0461 m, 2 of 146 fixes, margin -0.0089 m) ({card_line()})")
+    _fail("bench configurations, degraded GPS", {
+        "every pose finite": bool(np.all(np.isfinite(a[0])) and np.all(np.isfinite(a[1]))),
+        "at least 1 GPS factor": n_gps >= 1,
+        "no factor from a fix in the degraded middle third":
+            not [i for i in used if third <= i < 2 * third],
+        f"ATE < {ATE_GATE_M} m": ate < ATE_GATE_M,
+        "replay bit-identical": result["replay_bit_identical"],
+        "a verification": result["verifications"] >= 1,
+        "nearest_neighbors, refresh_planes, merged_moments and insert_claim launched":
+            min(launches[k] for k in ("nearest_neighbors", "refresh_planes", "merged_moments",
+                                      "insert_claim")) > 0,
+        **_default_path(launches),
+    })
+    return result
+
+
+def oracle_part(loop_free, root: str) -> dict:
+    """``bench.py: bench_longrun_oracle`` on phase 8's loop-free engine
+    (``exp_loop_trust.longrun_oracle``): ground-truth loops and one deep
+    solve."""
+    from fastliosam_tpu_torch.scripts.exp_loop_trust import longrun_oracle
+
+    if loop_free.loop_pairs:
+        raise AssertionError("bench configurations, oracle: the engine closed loops")
+    out, launches = _launch_counts(lambda: longrun_oracle(loop_free, root))
+    out["launches"] = launches
+    print("  oracle " + json.dumps(out), flush=True)
+    print(f"  oracle: {out['oracle_loops_injected']} loops injected, keyframe ATE "
+          f"{out['oracle_odom_kf_ate_m']:.4f} m -> {out['oracle_solved_kf_ate_m']:.4f} m, the "
+          f"solve {out['oracle_solve_s']:.1f} s beside the other parts (accuracy reference, JAX "
+          f"on a TPU: 287 loops, 3.5085 m -> 1.8184 m) ({card_line()})", flush=True)
+    _fail("bench configurations, oracle", {
+        "loops injected": out["oracle_loops_injected"] > 0,
+        "finite": bool(np.isfinite([out["oracle_odom_kf_ate_m"],
+                                    out["oracle_solved_kf_ate_m"]]).all()),
+        "solved keyframe ATE < odometry keyframe ATE":
+            out["oracle_solved_kf_ate_m"] < out["oracle_odom_kf_ate_m"],
+    })
+    return out
+
+
+# the parts that run in spawned processes of their own, side by side and
+# beside the oracle in the script's process (their gates are bits and
+# accuracy; their host-clock readings are taken beside each other)
+BENCH_CHILD_PARTS = ("refexact_fig8", "refexact_corridor", "gps_degraded")
+BENCH_CHILD_TIMEOUT_S = 600.0
+
+
+def bench_child(name: str, corridor_path: str, chunk: int, pipe_ate: float,
+                out_dir: str) -> None:
+    """One part of phase 16 in a spawned process (the kernels are built: it
+    only loads them). Writes the part's record to ``out_dir/<name>.json``;
+    a failed gate exits non-zero."""
+    import torch
+
+    from fastliosam_tpu_torch.eval import feeds
+    from fastliosam_tpu_torch.utils import geometry_precision
+
+    sys.stdout.reconfigure(line_buffering=True)  # whole lines beside the other processes
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    with geometry_precision():
+        if name == "refexact_corridor":
+            rec = refexact_corridor_part(dev, load_feed(corridor_path), chunk)
+        elif name == "refexact_fig8":
+            rec = refexact_fig8_part(dev, feeds.fig8_sequence(PIPE_SCANS), chunk)
+        else:
+            rec = degraded_gps_part(dev, feeds.fig8_sequence(PIPE_SCANS), chunk, pipe_ate)
+    rec["part_s"] = time.perf_counter() - t0
+    (Path(out_dir) / f"{name}.json").write_text(json.dumps(rec, default=str))
+
+
+def bench_configs_phase(dev, floor, corridor_path: str, loop_free, kitti_root: str,
+                        chunk: int, pipe_ate: float) -> dict:
+    """Phase 16: the Livox part first, alone (its kernel timings), then
+    ``BENCH_CHILD_PARTS`` each in a spawned process of its own
+    (:func:`bench_child`) beside the oracle in this one; each path's
+    launches counted (``launches_by_path`` ``bench_*``), each part's
+    seconds printed. ``pipe_ate`` is phase 14's pipeline ATE."""
+    t_phase = time.perf_counter()
+    parts, parts_s = {}, {}
+    parts["livox"] = livox_part(dev, floor)
+    parts_s["livox"] = time.perf_counter() - t_phase
+    out = ROOT / "build" / "bench_configs"
+    out.mkdir(parents=True, exist_ok=True)
+    for name in BENCH_CHILD_PARTS:
+        (out / f"{name}.json").unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = {name: ctx.Process(target=bench_child, name=f"bench_{name}",
+                               args=(name, corridor_path, chunk, pipe_ate, str(out)))
+             for name in BENCH_CHILD_PARTS}
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    for proc in procs.values():
+        proc.start()
+    try:
+        parts["oracle"] = oracle_part(loop_free, kitti_root)
+        parts_s["oracle"] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            proc.join(max(1.0, BENCH_CHILD_TIMEOUT_S - (time.perf_counter() - t0)))
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    failed = [f"{name} (exit {proc.exitcode})" for name, proc in procs.items()
+              if proc.exitcode != 0]
+    if failed:
+        raise AssertionError("bench configurations failed: " + ", ".join(failed))
+    for name in BENCH_CHILD_PARTS:
+        parts[name] = json.loads((out / f"{name}.json").read_text())
+        parts_s[name] = parts[name]["part_s"]
+    parts_s["side_by_side"] = time.perf_counter() - t0
+    print("  bench configurations parts (s; all but the Livox part side by side): "
+          + json.dumps({k: round(v, 1) for k, v in parts_s.items()}), flush=True)
+    launches = {f"bench_{k}": r["launches"] for k, r in parts.items()}
+    launches["bench_refexact_verify"] = parts["refexact_fig8"]["verify"]["launches"]
+    return {"parts": parts, "parts_s": parts_s, "launches": launches,
+            "kernels": parts["livox"].pop("kernels"), "phase_s": time.perf_counter() - t_phase}
+
+
 def profile_summary(prof, wall_s: float, n_scans: int, top: int = 12) -> dict:
     """Device time by kernel over the traced window, and the device's busy
     share of the window's wall time (the port runs on one stream, so the
@@ -4129,7 +4686,7 @@ def _wait_s(what: str, since: float) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=150, help="figure-8 scans to run")
-    ap.add_argument("--corridor-scans", type=int, default=200,
+    ap.add_argument("--corridor-scans", type=int, default=CORRIDOR_SCANS,
                     help="GPS corridor scans (the bench runs 400; cut to keep the script "
                     "inside its time)")
     ap.add_argument("--chunk", type=int, default=5, help="scans per chunk")
@@ -4167,6 +4724,7 @@ def main(argv=None) -> int:
         corridor_job = pool.submit(corridor_feed, args.corridor_scans)
         bag_job = pool.submit(bag_feed, args.scans)
         pipe_job = pool.submit(pipeline_feeds)
+        bench_job = pool.submit(bench_feeds)
         _phase_s(1, "card and workers", time.perf_counter() - t_start)
 
         t0 = time.perf_counter()
@@ -4241,7 +4799,7 @@ def main(argv=None) -> int:
             _wait_s("KITTI sequence", t0)
             t0 = time.perf_counter()
             print(f"KITTI phase ({KITTI_SCANS} scans generated in {kitti_s:.1f} s):")
-            kitti = kitti_phase(dev, kitti_root, args.chunk)
+            kitti, kitti_loop_free = kitti_phase(dev, kitti_root, args.chunk)
             kitti["feed_s"] = kitti_s
             _phase_s(8, "KITTI", time.perf_counter() - t0)
             t0 = time.perf_counter()
@@ -4278,6 +4836,15 @@ def main(argv=None) -> int:
                   "bench_pp_overlap on cuda:0):", flush=True)
             scaling = scaling_phase(dev)
             _phase_s(15, "scaling scripts", scaling["phase_s"])
+            t0 = time.perf_counter()
+            bench_job.result()
+            _wait_s("bench configuration feeds", t0)
+            print("bench configurations phase (Livox rollout, reference-exact figure-8 and "
+                  "corridor, degraded GPS, long-run oracle):", flush=True)
+            bench = bench_configs_phase(dev, floor, corridor_job.result(), kitti_loop_free,
+                                        kitti_root, args.chunk, pipe["pipeline_ate_m"])
+            del kitti_loop_free
+            _phase_s(16, "bench configurations", bench["phase_s"])
             if args.profile_scans > 0:
                 print(f"profile (SlamEngine.process, last {args.profile_scans} scans):")
                 per_scan["profile"] = profile_phase(dev, fig8, args.profile_scans)
@@ -4296,7 +4863,7 @@ def main(argv=None) -> int:
                       for k in mesh["launches_per_rank"][0]},
              "mesh_nccl": mesh["nccl"]["launches"],
              "postprocess": pp["result"]["launches"], **measure["launches"],
-             **pipe["launches"], **scaling["launches"]}
+             **pipe["launches"], **scaling["launches"], **bench["launches"]}
     shapes = kitti["kernel_shapes"]
     at_localizer = {"nearest_neighbors": shapes["nearest_neighbors"],
                     "insert_claim": shapes["insert_claim"],
@@ -4314,6 +4881,8 @@ def main(argv=None) -> int:
             rec["at_localizer_shape"] = at_localizer[name]
         if name in batched["kernels"]:
             rec["at_lanes"] = batched["kernels"][name]
+        if name in bench["kernels"]:
+            rec["at_livox_shape"] = bench["kernels"][name]
         if "at_mesh_rank_shape" in rec:
             rec["at_mesh_rank_shape"]["launches_per_rank"] = [
                 r[name] for r in mesh["launches_per_rank"]]
@@ -4326,7 +4895,7 @@ def main(argv=None) -> int:
              "exp_gather": exp_recs, "per_scan": per_scan, "chunked": chunked, "gps": gps,
              "modes": modes, "kitti": kitti, "bag": bag, "batched": batched, "mesh": mesh,
              "postprocess": pp, "measurement": measure, "pipeline": pipe,
-             "scaling": scaling, "timing_floor_ms": floor,
+             "scaling": scaling, "bench_configs": bench, "timing_floor_ms": floor,
              "total_s": time.perf_counter() - t_start},
             indent=1, default=str))
     print(json.dumps(line))

@@ -1,6 +1,7 @@
 """The feed and engine functions of ``bench.py`` (port): the synthetic
-sequences, their packing and cache, the staged odometry rollout and the
-bench's loop-closing engine, under the bench's names.
+sequences, their packing and cache, the staged odometry rollout, the
+bench's loop-closing engine and its reference-exact engine, under the
+bench's names.
 
     data = fig8_sequence()                    # build_fig8_sequence, cached
     engine = make_engine_for(data, chunk=5)   # on cuda; device="cpu" on the CPU
@@ -31,6 +32,7 @@ N_SCANS = 40
 N_WARM = 3
 RAW_PTS = 32768  # ~HDL-64 after point_filter_num=4
 IMU_CAP = 32
+LIVOX_PTS = 8192  # the Livox feed's points a scan (bench.py: bench_livox's raw_pts)
 PIPE_SCANS = 150  # the loop-closing figure-8 feed
 CORR_SCANS = 400  # the GPS corridor
 GPS_ANCHOR = (22.3193, 114.1694, 10.0)  # lat, lon, alt of the sim world's origin
@@ -99,6 +101,20 @@ def build_corridor_sequence(n_scans: int = CORR_SCANS) -> dict:
     return pack_sequence(simulate_sequence(world, traj, cfg, n_scans=n_scans), traj)
 
 
+def build_livox_sequence(n_scans: int = N_SCANS + N_WARM) -> dict:
+    """The sparse irregular-density feed (``bench.py: build_livox_sequence``):
+    the odometry feed's room and circle seen by an Avia-like rosette of
+    ``LIVOX_PTS`` rays in a forward cone (``sim/world.py: _ray_dirs_livox``)."""
+    from ..sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+
+    world = PlaneWorld.room(size=60.0, height=10.0, n_boxes=25, seed=7)
+    traj = Trajectory.circle(radius=8.0, period=40.0, z_amp=0.3)
+    cfg = SimConfig(scan_rate=10.0, pattern="livox", livox_n_points=LIVOX_PTS,
+                    max_range=120.0, gyro_noise=0.001, acc_noise=0.01, seed=7,
+                    time_groups=32)
+    return pack_sequence(simulate_sequence(world, traj, cfg, n_scans=n_scans), traj)
+
+
 def pack_sequence(data, traj) -> dict:
     """A simulated sequence as stacked arrays (``bench.py: pack_sequence``):
     scans, IMU padded to at least ``IMU_CAP`` samples (stamps padded with
@@ -143,8 +159,8 @@ def _cached(path, make) -> dict:
 
 
 def cache_path(name: str, n_scans: int) -> Path:
-    """Where the feed ``name`` (``seq``, ``fig8``) of ``n_scans`` scans is
-    cached."""
+    """Where the feed ``name`` (``seq``, ``fig8``, ``livox``) of ``n_scans``
+    scans is cached."""
     return CACHE_DIR / f"{name}_{n_scans}.npz"
 
 
@@ -157,6 +173,12 @@ def fig8_sequence(n_scans: int = PIPE_SCANS) -> dict:
     """:func:`build_fig8_sequence`, cached (the bench's ``_cached(PIPE_CACHE,
     build_fig8_sequence)``)."""
     return _cached(cache_path("fig8", n_scans), lambda: build_fig8_sequence(n_scans))
+
+
+def livox_sequence(n_scans: int = N_SCANS + N_WARM) -> dict:
+    """:func:`build_livox_sequence`, cached (the bench's ``_cached(LIVOX_CACHE,
+    build_livox_sequence)``)."""
+    return _cached(cache_path("livox", n_scans), lambda: build_livox_sequence(n_scans))
 
 
 def pad_scans(data, raw_pts: int = RAW_PTS):
@@ -254,6 +276,38 @@ def make_engine_for(data=None, raw_pts: int = RAW_PTS, chunk: int = 5, max_kf: i
         cfg=EngineConfig(keyframe_threshold=1.0, loop_check_every=chunk,
                          kf_cloud_points=4096, kf_cloud_voxel=0.3),
         mesh=mesh,
+        device=device,
+    )
+
+
+def make_refexact(max_kf: int, max_between: int, max_gps: int, use_gps: bool = False,
+                  chunk: int = 5, device=None):
+    """The reference-exact engine of ``bench.py: bench_reference_exact``
+    (its nested ``make_refexact``): :func:`make_engine_for`'s odometry and
+    map, ``LoopConfig.reference_exact`` (35 m / 30 s, untrimmed
+    point-to-point ICP accepted on fitness alone, isotropic noise) over
+    16,384-point submaps and ``EngineConfig.reference_exact`` (a keyframe
+    every moving scan, a solve every keyframe, first-fix GPS anchoring,
+    no GPS motion compensation) with the bench's keyframe clouds and GPS
+    stamp tolerance."""
+    from ..loop import LoopConfig
+    from ..map import VoxelMapConfig
+    from ..odom import OdomConfig
+    from ..pgo import PoseGraphConfig
+    from ..runtime import EngineConfig, SlamEngine
+
+    return SlamEngine(
+        odom_cfg=OdomConfig(point_filter_num=1, blind=1.0, filter_size_surf=0.5,
+                            num_ds_points=8192, det_range=150.0, evict_every=10_000,
+                            query_mode="merged3"),
+        map_cfg=VoxelMapConfig(capacity=1 << 19, voxel_size=0.5, min_points=5,
+                               query_probes=2, insert_probes=2, claim_probes=2),
+        loop_cfg=LoopConfig.reference_exact(submap_points=16384),
+        pgo_cfg=PoseGraphConfig(max_keyframes=max_kf, max_between=max_between,
+                                max_gps=max_gps),
+        cfg=EngineConfig.reference_exact(loop_check_every=chunk, kf_cloud_points=4096,
+                                         kf_cloud_voxel=0.3, use_gps=use_gps,
+                                         gps_time_tol=0.05),
         device=device,
     )
 

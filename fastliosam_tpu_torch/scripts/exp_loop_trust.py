@@ -22,6 +22,10 @@ the fitness acceptance (default 1.5), ``multistart`` the coarse ICP starts.
 The circuits are written under ``build/`` on first use by
 ``make_kitti_synth`` (:data:`GEN_WORKERS` processes at nice 10, in the
 background while earlier specs run).
+
+:func:`longrun_oracle` is the bench's oracle experiment (``bench.py:
+bench_longrun_oracle``) on an engine that has already driven the circuit
+loop-free: ground-truth loop factors and one deep batch solve.
 """
 from __future__ import annotations
 
@@ -95,6 +99,83 @@ def make_longrun_engine(loop_cfg=None, device=None):
         submap_points=16384, icp_score_threshold=0.5, max_sqrt_info=1.0)
     engine.reset()  # the stores and the graph at the new capacities
     return engine
+
+
+# the oracle's injected loops (bench.py: bench_longrun_oracle): the shipped
+# gating, the exact ground-truth relative pose at a fixed information
+ORACLE_RADIUS_M, ORACLE_TIME_GAP_S = 10.0, 4.0
+ORACLE_SQRT_INFO = [100.0] * 3 + [1000.0] * 3
+
+
+def oracle_loops(kf_stamps, scan_times, gt):
+    """The oracle's ground-truth loops: each keyframe's scan (its stamp to
+    the nearest 0.1 s from the first scan time), and for each keyframe the
+    nearest earlier keyframe within ``ORACLE_RADIUS_M`` and more than
+    ``ORACLE_TIME_GAP_S`` before it, with their true relative pose. Returns
+    ``(li, lj, lrel, pos_gt)``: query and candidate indices, ``(L, 4, 4)``
+    relative poses and the keyframes' true positions."""
+    kf_st = np.asarray(kf_stamps, np.float64)
+    times = np.asarray(scan_times, np.float64)
+    scan_of_kf = np.clip(np.round((kf_st - times[0]) / 0.1).astype(int), 0, len(times) - 1)
+    Tgt = gt[scan_of_kf]
+    pos_gt = Tgt[:, :3, 3]
+    li, lj, lrel = [], [], []
+    for i in range(len(kf_st)):
+        d = np.linalg.norm(pos_gt[:i] - pos_gt[i], axis=1)
+        ok = np.where((d < ORACLE_RADIUS_M) & (kf_st[i] - kf_st[:i] > ORACLE_TIME_GAP_S))[0]
+        if len(ok):
+            j = int(ok[np.argmin(d[ok])])
+            li.append(i)
+            lj.append(j)
+            lrel.append(np.linalg.inv(Tgt[i]) @ Tgt[j])
+    return li, lj, np.asarray(lrel, np.float32).reshape(-1, 4, 4), pos_gt
+
+
+def longrun_oracle(engine, root) -> dict:
+    """The oracle experiment of ``bench.py: bench_longrun_oracle`` on an
+    engine that has driven the circuit at ``root`` loop-free: the
+    odometry graph plus :func:`oracle_loops` at sqrt-info
+    ``ORACLE_SQRT_INFO``, solved once at 32 LM / 768 PCG iterations with
+    plain L2 loop factors (no GNC); the keyframe ATE (Umeyama-aligned)
+    before and after. The floor the odometry chain and the solver reach
+    when every loop is perfect. Returns the bench's keys (unrounded) and
+    the solve's seconds, from and to a drained device queue."""
+    import torch
+
+    from ..eval import align_umeyama
+    from ..io import KittiSequence
+    from ..pgo import from_arrays, solve
+    from ..utils import host_read
+
+    seq = KittiSequence(str(root), "00")
+    n = engine.kf.n
+    g = engine.graph
+    n_bt = engine._n_bt_host
+    kf_st, poses0, bt_i, bt_j, bt_rel, bt_si = host_read(
+        engine.kf.stamps[:n], g.poses[: max(n, 1)], g.bt_i[:n_bt], g.bt_j[:n_bt],
+        g.bt_rel[:n_bt], g.bt_sqrt_info[:n_bt])
+    li, lj, lrel, pos_gt = oracle_loops(kf_st, seq.times, seq.gt_poses())
+    si_loop = np.tile(np.asarray([ORACLE_SQRT_INFO], np.float32), (len(li), 1))
+    cfg = engine.pgo_cfg._replace(lm_iters=32, pcg_iters=768, loop_gnc_barc=0.0)
+    g_or = from_arrays(cfg, poses0, bt_i=np.concatenate([bt_i, li]).astype(np.int32),
+                       bt_j=np.concatenate([bt_j, lj]).astype(np.int32),
+                       bt_rel=np.concatenate([bt_rel, lrel]),
+                       bt_sqrt_info=np.concatenate([bt_si, si_loop]), device=engine.device)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    t0 = time.perf_counter()
+    g_or, _ = solve(g_or, cfg, device=engine.device)
+    est = host_read(g_or.poses[:n, :3, 3])
+    solve_s = time.perf_counter() - t0
+
+    def kf_ate(e):
+        _, R, t = align_umeyama(e, pos_gt)
+        e = e @ R.T + t
+        return float(np.sqrt(np.mean(np.sum((e - pos_gt) ** 2, axis=1))))
+
+    return {"oracle_loops_injected": len(li),
+            "oracle_odom_kf_ate_m": kf_ate(poses0[:n, :3, 3]),
+            "oracle_solved_kf_ate_m": kf_ate(est), "oracle_solve_s": solve_s}
 
 
 def loop_audit(engine, seq) -> list:

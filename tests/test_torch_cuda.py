@@ -1827,3 +1827,53 @@ def test_cached_iekf_on_the_card_equals_its_composition(cuda_device, gate_on_dev
     for a, b in zip(x, ox):
         np.testing.assert_array_equal(_bits(a), _bits(b))
     assert int(n_matched) == int(on) > 1000
+
+
+# ---------------------------------------------------------------------------
+# the Livox rollout's shapes (bench.py: bench_livox): 4096 downsampled points
+# ---------------------------------------------------------------------------
+def _livox_map(dev, n_scans=10, budget=4096):
+    """The Livox feed's rosette (8192 rays, ``eval/feeds.py:
+    build_livox_sequence``'s world and path) inserted for ``n_scans`` scans
+    at their ground-truth poses into a 2^19-slot map (2 probes), and the
+    next scan downsampled as the odometry downsamples it (0.5 m voxels, the
+    first ``budget`` of the packed output) in the world frame."""
+    from fastliosam_tpu_torch.core.pointcloud import Cloud, voxel_downsample
+    from fastliosam_tpu_torch.map import voxel_hash as vh
+    from fastliosam_tpu_torch.sim import PlaneWorld, SimConfig, Trajectory, simulate_sequence
+
+    world = PlaneWorld.room(size=60.0, height=10.0, n_boxes=25, seed=7)
+    traj = Trajectory.circle(radius=8.0, period=40.0, z_amp=0.3)
+    sim = SimConfig(scan_rate=10.0, pattern="livox", livox_n_points=8192, max_range=120.0,
+                    seed=7, time_groups=32)
+    data = simulate_sequence(world, traj, sim, n_scans=n_scans + 1)
+    cfg = vh.VoxelMapConfig(capacity=1 << 19, voxel_size=0.5, insert_probes=2,
+                            claim_probes=2, query_probes=2)
+    m = vh.make_map(cfg, dev)
+    world_pts = []
+    for (pts, _, hit), (R, p) in zip(data["scans"], data["gt"]):
+        xyz = torch.from_numpy((pts @ R.T + p).astype(np.float32)).to(dev)
+        world_pts.append((xyz, torch.from_numpy(hit).to(dev)))
+    for xyz, hit in world_pts[:n_scans]:
+        m, _ = vh.insert(m, cfg, xyz, hit, refresh_planes=False)
+    ds = voxel_downsample(Cloud(*world_pts[n_scans]), 0.5)
+    return vh, m, cfg, ds.xyz[:budget].contiguous(), ds.mask[:budget].contiguous()
+
+
+@pytest.mark.cuda
+def test_assoc_kernel_at_the_livox_shape(cuda_device):
+    """``merged_moments`` at 4096 points x the merged stencil's 7 pools x 2
+    probes: bit for bit with its plain version."""
+    vh, m, cfg, xyz, mask = _livox_map(cuda_device)
+    assert xyz.shape == (4096, 3)
+    got = _assoc_check(vh, m, cfg, xyz, mask, "merged", 2)
+    assert int((got[:, 0] > 0).sum()) > 0.5 * int(mask.sum())
+
+
+@pytest.mark.cuda
+def test_insert_kernel_at_the_livox_shape(cuda_device):
+    """``insert_claim`` of 4096 points, 2 rounds, into the Livox map: bit for
+    bit with its plain version (new voxels claimed, none dropped)."""
+    vh, m, cfg, xyz, mask = _livox_map(cuda_device)
+    got = _insert_check(cuda_device, m, xyz, mask, 2)
+    assert int(got[4]) == 0 and int((got[0] != 0).sum()) > int((m.fp != 0).sum())

@@ -108,7 +108,7 @@ def _jax_functions(path, names, env, outer=None, unsum=()):
 # the feeds and the engine
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("name", ["build_sequence", "build_fig8_sequence",
-                                  "build_corridor_sequence"])
+                                  "build_corridor_sequence", "build_livox_sequence"])
 def test_sequences_match_bench(bench, name, monkeypatch):
     for const in ("PIPE_SCANS", "CORR_SCANS", "N_SCANS"):
         monkeypatch.setattr(bench, const, 3)

@@ -131,7 +131,7 @@ def oracle_loops(kf_stamps, scan_times, gt):
     return li, lj, np.asarray(lrel, np.float32).reshape(-1, 4, 4), pos_gt
 
 
-def longrun_oracle(engine, root) -> dict:
+def longrun_oracle(engine, root, save_to=None) -> dict:
     """The oracle experiment of ``bench.py: bench_longrun_oracle`` on an
     engine that has driven the circuit at ``root`` loop-free: the
     odometry graph plus :func:`oracle_loops` at sqrt-info
@@ -139,7 +139,10 @@ def longrun_oracle(engine, root) -> dict:
     plain L2 loop factors (no GNC); the keyframe ATE (Umeyama-aligned)
     before and after. The floor the odometry chain and the solver reach
     when every loop is perfect. Returns the bench's keys (unrounded) and
-    the solve's seconds, from and to a drained device queue."""
+    the solve's seconds, from and to a drained device queue. ``save_to``,
+    if given, is an ``.npz`` path for the solved graph's inputs (the
+    keyframe poses and every factor), the solve's configuration (JSON),
+    the solved and true keyframe positions."""
     import torch
 
     from ..eval import align_umeyama
@@ -157,10 +160,11 @@ def longrun_oracle(engine, root) -> dict:
     li, lj, lrel, pos_gt = oracle_loops(kf_st, seq.times, seq.gt_poses())
     si_loop = np.tile(np.asarray([ORACLE_SQRT_INFO], np.float32), (len(li), 1))
     cfg = engine.pgo_cfg._replace(lm_iters=32, pcg_iters=768, loop_gnc_barc=0.0)
-    g_or = from_arrays(cfg, poses0, bt_i=np.concatenate([bt_i, li]).astype(np.int32),
-                       bt_j=np.concatenate([bt_j, lj]).astype(np.int32),
-                       bt_rel=np.concatenate([bt_rel, lrel]),
-                       bt_sqrt_info=np.concatenate([bt_si, si_loop]), device=engine.device)
+    factors = {"bt_i": np.concatenate([bt_i, li]).astype(np.int32),
+               "bt_j": np.concatenate([bt_j, lj]).astype(np.int32),
+               "bt_rel": np.concatenate([bt_rel, lrel]),
+               "bt_sqrt_info": np.concatenate([bt_si, si_loop])}
+    g_or = from_arrays(cfg, poses0, **factors, device=engine.device)
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     t0 = time.perf_counter()
@@ -173,6 +177,9 @@ def longrun_oracle(engine, root) -> dict:
         e = e @ R.T + t
         return float(np.sqrt(np.mean(np.sum((e - pos_gt) ** 2, axis=1))))
 
+    if save_to is not None:
+        np.savez_compressed(save_to, poses0=poses0[:n], **factors, n_odom=n_bt,
+                            cfg=json.dumps(cfg._asdict()), solved_xyz=est, pos_gt=pos_gt)
     return {"oracle_loops_injected": len(li),
             "oracle_odom_kf_ate_m": kf_ate(poses0[:n, :3, 3]),
             "oracle_solved_kf_ate_m": kf_ate(est), "oracle_solve_s": solve_s}
